@@ -7,8 +7,11 @@ PyTorch; the TPU's Pallas kernels on the ported path are hand-written CUDA
 C++ (``csrc/``, bound in ``ops/kernels.py``). This package never imports
 ``jax``.
 
-Ported so far: the keyframe replay path (``Mapper.replay``). What is still
-to come is listed in ``ROADMAP.md``.
+Ported so far: the keyframe replay path (``Mapper.replay``), the live
+single-robot path (``Mapper.add_frame`` / ``spin_once`` / ``optimize``,
+driven by ``python -m scl_slam_tpu_torch.run``) and the pose-graph solve.
+``Mapper`` runs on the GPU unless it is given ``device="cpu"``. What is
+still to come is listed in ``ROADMAP.md``.
 """
 
 __version__ = "0.1.0"

@@ -19,7 +19,7 @@
 // whatever order the atomics land in, and the all-zero initial image is the
 // float 0.0 that empty bins and non-positive values read.
 //
-// What bounds it on the H100: reading B x N x (4 + 4 + 4 + 1) bytes (13.6 MB
+// What bounds it on the H100: reading B x N x (4 + 4 + 4 + 1) bytes (27.3 MB
 // at the replay path's 32 x 65,536 points) plus shared-memory atomics, which
 // serialize when many points of one warp hit one bin. Design: one block per
 // frame holds the frame's R x S image (at most 4096 bins, 16 KB) as uint32 in

@@ -63,3 +63,54 @@ def log(p: Pose) -> torch.Tensor:
 def transform_points(p: Pose, pts: torch.Tensor) -> torch.Tensor:
     """Apply pose to points [..., N, 3]."""
     return torch.einsum("...ij,...nj->...ni", p.R, pts) + p.t[..., None, :]
+
+
+def retract(p: Pose, xi: torch.Tensor) -> Pose:
+    """Right-multiplicative retraction p * exp(xi) used by the GN solver,
+    re-orthonormalized (chained f32 compositions drift off SO(3))."""
+    q = compose(p, exp(xi))
+    return Pose(so3.orthonormalize(q.R), q.t)
+
+
+def local(a: Pose, b: Pose) -> torch.Tensor:
+    """log(a^{-1} b): the local coordinates of b around a."""
+    return log(between(a, b))
+
+
+def adjoint(p: Pose) -> torch.Tensor:
+    """SE(3) adjoint [..., 6, 6] mapping twists between frames."""
+    zeros = torch.zeros_like(p.R)
+    top = torch.cat([p.R, zeros], dim=-1)
+    bottom = torch.cat([so3.hat(p.t) @ p.R, p.R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def to_matrix(p: Pose) -> torch.Tensor:
+    """Pose -> homogeneous [..., 4, 4]."""
+    batch = p.t.shape[:-1]
+    top = torch.cat([p.R, p.t[..., None]], dim=-1)
+    bottom = torch.tensor(
+        [0.0, 0.0, 0.0, 1.0], dtype=p.t.dtype, device=p.t.device
+    ).expand(*batch, 1, 4)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def from_matrix(T: torch.Tensor) -> Pose:
+    return Pose(T[..., :3, :3], T[..., :3, 3])
+
+
+def stack(poses, dim=0) -> Pose:
+    return Pose(
+        torch.stack([p.R for p in poses], dim=dim),
+        torch.stack([p.t for p in poses], dim=dim),
+    )
+
+
+def index(p: Pose, idx) -> Pose:
+    return Pose(p.R[idx], p.t[idx])
+
+
+def take(p: Pose, indices: torch.Tensor) -> Pose:
+    """Rows ``indices`` of a batched pose (``jnp.take`` along axis 0)."""
+    indices = indices.long()
+    return Pose(p.R[indices], p.t[indices])

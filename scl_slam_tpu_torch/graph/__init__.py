@@ -1,4 +1,5 @@
-from . import factors
-from .factors import FactorGraph, add_prior, make_graph
+from . import factors, rotation_init, solver
+from .factors import FactorGraph, add_between, add_prior, make_graph
 
-__all__ = ["factors", "FactorGraph", "make_graph", "add_prior"]
+__all__ = ["factors", "rotation_init", "solver", "FactorGraph", "make_graph",
+           "add_between", "add_prior"]

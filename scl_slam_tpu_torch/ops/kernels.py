@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the replay path, their plain PyTorch
-versions, and the build that binds them (counterpart of
+"""Hand-written CUDA kernels of the replay and live paths, their plain
+PyTorch versions, and the build that binds them (counterpart of
 ``scl_slam_tpu/ops/pallas_kernels.py``).
 
 ========  ==============================  ===================================
@@ -9,6 +9,7 @@ K1        ``nn_select_batched_pallas``    ``csrc/nn_select_batched.cu``
           (variant ``mineq``)
 K2        ``max_image_pallas`` (exact     ``csrc/max_image.cu``
           here; see the source)
+K4        ``nn_select_pallas``            ``csrc/nn_select.cu``
 ========  ==============================  ===================================
 
 Each wrapper takes its plain version for CPU tensors, and only then. On a
@@ -17,7 +18,8 @@ kernels are compiled on first use with ``nvcc`` (for ``sm_90a``, with
 ``-fmad=false`` so no multiply-add is contracted) into a shared library
 with a plain C interface under ``_build/``, and loaded with ``ctypes``.
 ``LAUNCHES`` counts the kernel launches per wrapper, so a run can show that
-it went through them.
+it went through them (K4 is two launches, a partial pass and a reduction,
+counted as one call).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ NVCC_FLAGS = (
 )
 
 # kernel launches per wrapper since the last reset_launch_counts()
-LAUNCHES = {"nn_select_batched": 0, "max_image": 0}
+LAUNCHES = {"nn_select_batched": 0, "max_image": 0, "nn_select": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -110,6 +112,8 @@ def load_library() -> ctypes.CDLL:
             lib.scl_nn_select_batched.restype = i
             lib.scl_max_image.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.scl_max_image.restype = i
+            lib.scl_nn_select.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.scl_nn_select.restype = i
             lib.scl_cuda_error_string.argtypes = [i]
             lib.scl_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -309,3 +313,108 @@ def max_image(
     LAUNCHES["max_image"] += 1
     return out
 
+
+# ---------------------------------------------------------------------------
+# K4: solo 1-NN + payload selection (argmin ties)
+# ---------------------------------------------------------------------------
+
+# pass 1 of the CUDA kernel: 128 queries per block (csrc/nn_select.cu)
+_K4_QUERY_BLOCK = 128
+# blocks of pass 1 to aim for: two per SM of an H100 (132 SMs)
+_K4_TARGET_BLOCKS = 264
+# fewest targets per chunk, so the shared-memory tile loads stay amortized
+_K4_MIN_CHUNK = 128
+
+
+def nn_select_plain(
+    query: torch.Tensor, payload: torch.Tensor, chunk: int | None = None
+):
+    """Plain PyTorch version of K4, written from the contract.
+
+    query [Nq, 3]; payload [P, Nt] (rows 0-2 target xyz). Returns
+    (d2 [Nq], sel [P, Nq]): d2 is the nearest target's
+    ``((dx*dx) + (dy*dy)) + (dz*dz)`` in f32, in exactly that order (so it is
+    bit-equal to the kernel's), clamped at 0; sel is the payload column of
+    the lowest target index at exactly that d2. A query that no target
+    beats (no target, or only NaN distances) gives (inf, 0). The target
+    axis is walked in chunks so [Nq, Nt] never exists whole: the first
+    minimum within a chunk, a strict < across chunks.
+    """
+    nq = query.shape[0]
+    P, nt = payload.shape
+    if chunk is None:
+        chunk = max(1, min(nt, (1 << 24) // max(1, nq)))
+    dtype, dev = query.dtype, query.device
+    best = torch.full((nq,), float("inf"), dtype=dtype, device=dev)
+    if nt == 0:
+        return best, torch.zeros((P, nq), dtype=dtype, device=dev)
+    qx, qy, qz = (query[:, c, None] for c in range(3))       # [Nq, 1]
+    arg = torch.zeros((nq,), dtype=torch.int64, device=dev)
+    for c0 in range(0, nt, chunk):
+        t = payload[:3, c0 : c0 + chunk]                       # [3, C]
+        dx = qx - t[None, 0]
+        dy = qy - t[None, 1]
+        dz = qz - t[None, 2]
+        d2 = dx * dx
+        d2 = d2 + dy * dy
+        d2 = d2 + dz * dz                                      # [Nq, C]
+        d2 = torch.where(torch.isnan(d2), float("inf"), d2)
+        cmin, carg = torch.min(d2, dim=-1)   # first minimum on ties
+        take = cmin < best
+        best = torch.where(take, cmin, best)
+        arg = torch.where(take, carg + c0, arg)
+    found = torch.isfinite(best)
+    sel = torch.where(found[None], payload[:, arg], 0.0)
+    d2 = torch.where(found, torch.clamp(best, min=0.0), float("inf"))
+    return d2, sel
+
+
+def _k4_chunking(nq: int, nt: int) -> tuple[int, int]:
+    """(targets per chunk, chunks) for pass 1: enough blocks to fill the
+    card, no chunk below ``_K4_MIN_CHUNK`` targets."""
+    q_blocks = -(-nq // _K4_QUERY_BLOCK)
+    want = -(-_K4_TARGET_BLOCKS // q_blocks)
+    chunks = max(1, min(want, nt // _K4_MIN_CHUNK))
+    chunk = -(-nt // chunks)
+    return chunk, -(-nt // chunk)
+
+
+def nn_select(query: torch.Tensor, payload: torch.Tensor):
+    """K4 (see ``csrc/nn_select.cu``): 1-NN of query [Nq, 3] among payload
+    rows 0-2 of [P, Nt], with the winner's payload column (lowest index on
+    exact ties). Returns (d2 [Nq], sel [P, Nq])."""
+    _require(query.dim() == 2 and query.shape[1] == 3,
+             f"query must be [Nq, 3], got {tuple(query.shape)}")
+    _require(payload.dim() == 2 and payload.shape[0] >= 3,
+             f"payload must be [P >= 3, Nt], got {tuple(payload.shape)}")
+    _require(query.dtype == payload.dtype == torch.float32,
+             "query and payload must be float32")
+    _require(query.device == payload.device, "query and payload must share a device")
+    if query.device.type == "cpu":
+        return nn_select_plain(query, payload)
+    _require(query.device.type == "cuda", f"unsupported device {query.device}")
+    _require(query.is_contiguous() and payload.is_contiguous(),
+             "query and payload must be contiguous")
+    nq = query.shape[0]
+    P, nt = payload.shape
+    _require(P * max(nq, nt) < 2**31, "sizes out of range")
+    dev = query.device
+    if nq == 0 or nt == 0:
+        return (
+            torch.full((nq,), float("inf"), dtype=torch.float32, device=dev),
+            torch.zeros((P, nq), dtype=torch.float32, device=dev),
+        )
+    d2 = torch.empty((nq,), dtype=torch.float32, device=dev)
+    sel = torch.empty((P, nq), dtype=torch.float32, device=dev)
+    chunk, chunks = _k4_chunking(nq, nt)
+    part_d = torch.empty((chunks, nq), dtype=torch.float32, device=dev)
+    part_i = torch.empty((chunks, nq), dtype=torch.int32, device=dev)
+    lib = load_library()
+    rc = lib.scl_nn_select(
+        query.data_ptr(), payload.data_ptr(), part_d.data_ptr(),
+        part_i.data_ptr(), d2.data_ptr(), sel.data_ptr(), nq, nt, P, chunk,
+        chunks, dev.index or 0, _stream(dev),
+    )
+    _check_launch(lib, rc, "nn_select")
+    LAUNCHES["nn_select"] += 1
+    return d2, sel

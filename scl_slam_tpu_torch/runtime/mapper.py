@@ -1,26 +1,35 @@
-"""The keyframe replay path of the SLAM orchestrator (port of the replay
-slice of ``scl_slam_tpu/runtime/mapper.py``).
+"""The SLAM orchestrator (port of ``scl_slam_tpu/runtime/mapper.py``):
+the live single-robot path, the keyframe replay path, and the loop-queue
+drain with the pose-graph solve.
 
-Per macro-batch of B keyframes (``_batch_body``):
+Live, per keyframe (``Mapper.add_frame`` + ``Mapper.spin_once``):
 
-0. storage downsample + Scan Context build (kernel K2 on CUDA) of all B
-   raw scans at once;
-1. block ingest into the fixed-capacity state (in place: the JAX step
-   donates its state), then one batched retrieval against the
-   post-insert DB;
-2. if any frame has a descriptor hit (a host branch, where JAX has
-   ``lax.cond``): submap gather and batched coarse-to-fine ICP (kernel K1
-   in every iteration);
-3. fitness gate + loop-queue append (exclusive cumsum for the cursor).
+0. storage downsample + Scan Context build (kernel K2 on CUDA) of the raw
+   scan, and single-frame ingest into the fixed-capacity state;
+1. intra retrieval for the new keyframe (``_retrieve_intra``);
+2. on a descriptor hit (a host branch, where JAX has ``lax.cond``): submap
+   gather and solo coarse-to-fine ICP (kernel K4 in every iteration);
+3. fitness gate + loop-queue append (``_enqueue_intra``);
+4. throttled by ``mapping_process_interval``: the queue drain into the
+   factor graph and the pose-graph solve (``_drain_queue_and_optimize``:
+   GN/PCG from the warm start and from a chordal rotation init, keeping
+   the lower final chi2).
 
-``Mapper.replay`` runs whole chunks of batches through ``_replay_batches``
-(a Python loop where JAX scans) and hands the remainder to
-``Mapper.add_frames``. What the slice does not cover raises
-``NotImplementedError`` naming the ROADMAP item it waits for: eviction,
-the queue drain and pose-graph solve, the voxel storage modes, the C++
-host-descriptor path and int16 scan transfer.
+Replay, per macro-batch of B keyframes (``_batch_body``): the same steps
+batched over frames, with batched ICP (kernel K1 in every iteration) and an
+exclusive-cumsum queue append. ``Mapper.replay`` runs whole chunks of
+batches through ``_replay_batches`` (a Python loop where JAX scans) and
+hands the remainder to ``Mapper.add_frames``.
+
+The state is updated in place (the JAX steps donate their state). What is
+not ported yet raises ``NotImplementedError`` naming the ROADMAP item it
+waits for: eviction, peers and the inter-robot path, PCM, the mesh solve,
+the voxel storage modes, the C++ host-descriptor path and int16 transfer.
 """
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
@@ -29,6 +38,8 @@ from ..config import SlamConfig
 from ..descriptors import base, registry
 from ..geometry import se3, so3
 from ..graph import factors as F
+from ..graph import solver
+from ..graph.rotation_init import chordal_rotation_init
 from ..ops import pointcloud as pc
 from ..ops import registration as reg
 from .state import LoopQueue, MapperState, to_numpy, make_state
@@ -40,6 +51,27 @@ IDX_BASE = 1 << 22
 
 def encode_kf(robot, index):
     return robot * IDX_BASE + index
+
+
+def _resolve_indices(state: MapperState, enc: torch.Tensor):
+    """Vectorized (robot, index) -> slot lookup over the descriptor DB.
+
+    Returns (slot [Q] int32, -1 where absent; pending [Q] bool: absent but
+    not ingested yet, i.e. the index is ahead of the robot's chain, so the
+    entry stays queued rather than being dropped as evicted)."""
+    db = state.desc_db
+    robot = (enc // IDX_BASE).long()
+    index = enc % IDX_BASE
+    hits = (db.robot[None, :] == robot[:, None]) & (db.index[None, :] == index[:, None])
+    found = hits.any(dim=1)
+    first = hits.to(torch.int8).argmax(dim=1)   # first hit, as jnp.argmax
+    slot = torch.where(found, first, -1).to(torch.int32)
+    K = state.kf_xyz.shape[0] // state.counts.shape[0]
+    count = state.counts[robot]
+    last_slot = torch.clamp(robot * K + count - 1, min=0)
+    last_index = torch.where(count > 0, db.index[last_slot], -1)
+    pending = ~found & (index > last_index)
+    return slot, pending
 
 
 def _prepare_frame(xyz: torch.Tensor, mask: torch.Tensor, cfg: SlamConfig):
@@ -277,6 +309,200 @@ def _enqueue_intra_block(
     return state, oks
 
 
+def _ingest_prepared(
+    state: MapperState, robot: int, pose: se3.Pose, small: pc.Cloud,
+    descriptor, stamp: torch.Tensor, cfg: SlamConfig,
+):
+    """Single-frame, DB-dependent half of ingestion: store the keyframe,
+    chain its optimized pose, add the prior (first frame) or the odometry
+    between factor, insert the prepared descriptor. The one-frame case of
+    :func:`_ingest_prepared_block`. Returns (state, wire descriptor)."""
+    one = lambda x: x[None]  # noqa: E731
+    state, _, _ = _ingest_prepared_block(
+        state, robot, se3.Pose(one(pose.R), one(pose.t)),
+        pc.Cloud(one(small.xyz), one(small.mask)),
+        type(descriptor)(*map(one, descriptor)), stamp.reshape(1), cfg,
+    )
+    return state, registry.get_family(cfg).to_wire(descriptor)
+
+
+def _ingest(
+    state: MapperState, robot: int, pose: se3.Pose, xyz: torch.Tensor,
+    mask: torch.Tensor, stamp: torch.Tensor, cfg: SlamConfig,
+):
+    """Full single-frame ingestion of a raw scan xyz [N, 3] / mask [N]:
+    :func:`_prepare_frame` + :func:`_ingest_prepared`."""
+    smalls, descriptors = _prepare_frame(xyz[None], mask[None], cfg)
+    small = pc.Cloud(smalls.xyz[0], smalls.mask[0])
+    descriptor = type(descriptors)(*(d[0] for d in descriptors))
+    return _ingest_prepared(state, robot, pose, small, descriptor, stamp, cfg)
+
+
+def _retrieve_intra(state: MapperState, robot: int, cfg: SlamConfig):
+    """Descriptor retrieval and attempt decision for the latest keyframe.
+    Returns (slot, q_idx, match, attempt, match_slot): ``match`` is a
+    one-row batched :class:`base.Match`, the others 0-d tensors."""
+    K = cfg.keyframe.max_keyframes
+    fam = registry.get_family(cfg)
+    pos = int(state.counts[robot]) - 1
+    slot = robot * K + max(pos, 0)
+    slots = torch.tensor([slot], device=state.kf_xyz.device)
+    q_idx = state.desc_db.index[slots]            # protocol index [1]
+    match = fam.query(state.desc_db, fam.from_db(state.desc_db, slots), robot, q_idx, "intra")
+    already = state.loop_target[slot] >= 0
+    attempt = match.found[0] & ~already & (pos >= 0)
+    match_slot = torch.where(attempt, match.db_pos[0], slot).to(torch.int32)
+    return slots[0], q_idx[0], match, attempt, match_slot
+
+
+def _enqueue_intra(
+    state: MapperState, robot: int, slot, match_slot, q_idx, match_index,
+    fitness, attempt, corr_R, corr_t, cfg: SlamConfig,
+):
+    """Fitness gate + loop-factor enqueue + dedup bookkeeping for one
+    keyframe: the one-frame case of :func:`_enqueue_intra_block` (its queue
+    position is the count; a full queue drops the factor). Returns
+    (state, ok)."""
+    one = lambda x: torch.as_tensor(x)[None]  # noqa: E731
+    state, oks = _enqueue_intra_block(
+        state, robot, one(slot), one(match_slot), one(q_idx), one(match_index),
+        one(fitness), one(attempt), one(corr_R), one(corr_t), cfg,
+    )
+    return state, oks[0]
+
+
+def _detect_intra(state: MapperState, robot: int, cfg: SlamConfig):
+    """One intra-robot loop-closure attempt for the latest keyframe:
+    descriptor query, then (on a hit: a host branch) yaw-seeded submap ICP,
+    fitness gate, loop factor queued. Returns (state, ok, match, fitness,
+    attempt); ``match`` holds the one query's fields as 0-d tensors."""
+    slot, q_idx, match, attempt, match_slot = _retrieve_intra(state, robot, cfg)
+    match = base.Match(*(f[0] for f in match))
+    dtype, dev = state.opt_t.dtype, state.opt_t.device
+    if bool(attempt):
+        count = state.counts[robot].reshape(1)
+        cur_clouds, targets, inits = _intra_verify_inputs(
+            state, slot.reshape(1), match_slot.reshape(1), match.yaw.reshape(1),
+            robot, cfg, count,
+        )
+        init = se3.Pose(inits.R[0], inits.t[0])
+        source_world = pc.transform(
+            pc.Cloud(cur_clouds.xyz[0], cur_clouds.mask[0]), init.R, init.t
+        )
+        res = reg.icp(
+            source_world,
+            pc.Cloud(targets.xyz[0], targets.mask[0]),
+            max_iters=cfg.loop.icp_iterations,
+            max_corr_dist=cfg.loop.icp_max_corr_dist,
+            tol=cfg.loop.icp_tol,
+            coarse_factor=cfg.loop.icp_coarse_factor,
+            gate_fitness=cfg.loop.history_fitness_score,
+            target_stride=cfg.loop.icp_target_stride,
+            reuse_final_fitness=cfg.loop.icp_reuse_final_fitness,
+        )
+        corrected = se3.compose(res.pose, init)
+        fitness, corr_R, corr_t = res.fitness.to(dtype), corrected.R, corrected.t
+    else:
+        fitness = torch.tensor(float("inf"), dtype=dtype, device=dev)
+        corr_R = torch.eye(3, dtype=dtype, device=dev)
+        corr_t = torch.zeros(3, dtype=dtype, device=dev)
+    state, ok = _enqueue_intra(
+        state, robot, slot, match_slot, q_idx, match.index, fitness, attempt,
+        corr_R, corr_t, cfg,
+    )
+    return state, ok, match, fitness, attempt
+
+
+def _ingest_and_detect(
+    state: MapperState, robot: int, pose: se3.Pose, xyz: torch.Tensor,
+    mask: torch.Tensor, stamp: torch.Tensor, cfg: SlamConfig,
+):
+    """Keyframe step: ingest, then intra-loop detection on it. Returns
+    (state, wire, ok, match, fitness, attempt)."""
+    state, wire = _ingest(state, robot, pose, xyz, mask, stamp, cfg)
+    state, ok, match, fitness, attempt = _detect_intra(state, robot, cfg)
+    return state, wire, ok, match, fitness, attempt
+
+
+def _drain_queue(state: MapperState, cfg: SlamConfig):
+    """Move queued loops into the factor graph (in place).
+
+    Loop factors get diagonal noise from the ICP fitness taken as a
+    variance, times ``loop_noise_scale``; entries whose endpoints are not
+    ingested yet stay queued (moved to the front, in order); entries whose
+    endpoints were evicted are dropped. The JAX ``fori_loop`` of masked
+    appends is one append in row order (an exclusive cumsum of the ready
+    rows), which gives the same edge rows. Returns (graph, n_new [0-d],
+    compacted queue).
+    """
+    if cfg.optimizer.use_pcm:
+        raise NotImplementedError(
+            "use_pcm=True needs PCM outlier rejection, which is not ported "
+            "yet (ROADMAP queue 1 item 15: graph/pcm.py)"
+        )
+    q = state.loop_queue
+    Q = q.i.shape[0]
+    in_queue = torch.arange(Q, device=q.i.device) < q.count
+    slots_i, pend_i = _resolve_indices(state, q.i)
+    slots_j, pend_j = _resolve_indices(state, q.j)
+    ready = in_queue & (slots_i >= 0) & (slots_j >= 0)
+    deferred = in_queue & ~ready & (pend_i | pend_j)
+    var = torch.clamp(q.noise * cfg.optimizer.loop_noise_scale, min=1e-6)
+    sq = 1.0 / torch.sqrt(var)
+    graph = F.add_between_block(
+        state.graph, torch.clamp(slots_i, min=0), torch.clamp(slots_j, min=0),
+        se3.Pose(q.z_R, q.z_t), sq[:, None].expand(Q, 6), valid=ready,
+    )
+    n_new = ready.sum()
+    # deferred entries first, in their order (a stable sort on ~deferred)
+    order = torch.sort((~deferred).to(torch.int8), stable=True).indices
+    new_queue = LoopQueue(
+        i=q.i[order], j=q.j[order], z_R=q.z_R[order], z_t=q.z_t[order],
+        noise=q.noise[order], count=deferred.sum().to(torch.int32),
+    )
+    return graph, n_new, new_queue
+
+
+def _drain_queue_and_optimize(state: MapperState, cfg: SlamConfig):
+    """Drain the loop queue into the factor graph, then solve (one device).
+
+    Solves only when the drain added loop factors (a host branch). GN runs
+    from two starts, the current estimate and a chordal rotation init, and
+    the lower final chi2 wins. Returns (state, chi2_history
+    [gn_iters + 1]; zeros when nothing was solved).
+    """
+    graph, n_new, new_queue = _drain_queue(state, cfg)
+    poses = se3.Pose(state.opt_R, state.opt_t)
+    o = cfg.optimizer
+    if int(n_new) > 0:
+
+        def run(init):
+            r = solver.solve(
+                graph, init, gn_iters=o.gn_iters, cg_iters=o.cg_iters,
+                damping=o.damping, huber_delta=o.huber_delta,
+                coarse_stride=o.coarse_stride, coarse_levels=o.coarse_levels,
+            )
+            return r.poses, r.chi2_history
+
+        warm_poses, warm_chi = run(poses)
+        staged_poses, staged_chi = run(chordal_rotation_init(graph, poses))
+        use_staged = staged_chi[-1] < warm_chi[-1]
+        opt_R = torch.where(use_staged, staged_poses.R, warm_poses.R)
+        opt_t = torch.where(use_staged, staged_poses.t, warm_poses.t)
+        chi2_history = torch.where(use_staged, staged_chi, warm_chi)
+    else:
+        opt_R, opt_t = poses.R, poses.t
+        chi2_history = poses.t.new_zeros((o.gn_iters + 1,))
+    state = state._replace(
+        graph=graph,
+        opt_R=opt_R,
+        opt_t=opt_t,
+        loop_queue=new_queue,
+        loop_closed=torch.zeros_like(state.loop_closed),
+    )
+    return state, chi2_history
+
+
 def _batch_body(
     state: MapperState,
     robot: int,
@@ -374,20 +600,33 @@ def _replay_batches(
 
 
 class Mapper:
-    """Host-side shell for one robot's replay session on ``device``.
+    """Host-side shell for one robot's SLAM session on ``device``.
 
-    Holds a :class:`MapperState` and applies the batched transitions
-    above. The live single-frame path (``add_frame``/``spin_once``),
-    peers and the solve are not ported yet (ROADMAP queue 1).
+    Holds a :class:`MapperState` and applies the transitions above: the
+    live path (:meth:`add_frame`, :meth:`spin_once`, :meth:`optimize`), the
+    replay path (:meth:`add_frames`, :meth:`replay`) and the exports. The
+    entry point runs on the card: ``device`` defaults to ``"cuda"`` and
+    the constructor raises where there is none, unless the caller asks for
+    ``device="cpu"`` (where every kernel takes its plain version). Peers,
+    the inter-robot path and eviction are not ported yet (ROADMAP queue 1).
     """
 
-    def __init__(self, cfg: SlamConfig, device="cpu"):
-        self.cfg = cfg
+    def __init__(self, cfg: SlamConfig, device="cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Mapper runs on the GPU by default and torch.cuda.is_available() "
+                "is false; pass device='cpu' to run on the CPU"
+            )
+        self.cfg = cfg
         self.state = make_state(cfg, self.device)
         self.robot = cfg.robot_id
         self._last_kf_pose: se3.Pose | None = None
         self._keyframes = 0
+        self._last_opt_time = float("-inf")
+        self._pending_intra = None
+        self._pending_intra_valid = False
+        self.icp_attempts = 0  # live-path ICP verifications run so far
 
     # -- keyframe gate (reference saveFrame, distributedMapping.h:755-780) --
     def should_add_keyframe(self, pose) -> bool:
@@ -444,6 +683,11 @@ class Mapper:
             for b in range(len(oks_h))
         ]
         self._keyframes += len(loops)
+        # hand the last frame's result to detect_intra_loop, so that a
+        # following spin_once does not detect again on a keyframe the batch
+        # already handled
+        self._pending_intra = loops[-1] if loops else None
+        self._pending_intra_valid = bool(loops)
         return loops
 
     def add_frames(self, poses, scans, stamps=None, apply_gate: bool = True) -> dict:
@@ -468,13 +712,11 @@ class Mapper:
         return {"accepted": accepted, "loops": loops, "keyframes": self._keyframes}
 
     def _ensure_queue_headroom(self, k: int) -> None:
-        """The JAX mapper drains and optimizes when the next ``k`` frames
-        could overflow the loop queue; that path is not ported yet."""
+        """Drain the loop queue (and solve) when the next ``k`` frames could
+        overflow it: a k-frame batch can enqueue up to k loop factors, and
+        an append to a full queue drops the factor."""
         if int(self.state.loop_queue.count) + k > self.cfg.loop.queue_capacity:
-            raise NotImplementedError(
-                "the loop queue would need a drain + pose-graph solve "
-                "(ROADMAP queue 1 item 8: drain and solve)"
-            )
+            self.optimize()
 
     def _ensure_capacity(self, k: int) -> None:
         """The JAX mapper evicts keyframes until ``k`` more fit the
@@ -553,12 +795,164 @@ class Mapper:
             loops.extend(out["loops"])
         return {"accepted": accepted, "loops": loops, "keyframes": self._keyframes}
 
+    # -- the live path --
+    def add_frame(self, pose, xyz, stamp: float = 0.0) -> np.ndarray | None:
+        """Process one odometry frame (``pose`` with ``.R`` [3, 3] / ``.t``
+        [3], tensors or arrays; ``xyz`` [N, 3]). Returns the wire descriptor
+        when the frame became a keyframe, else None. When intra detection is
+        due for the keyframe, it runs right after the ingest and
+        :meth:`spin_once` consumes the stored result."""
+        self._drain_server_loops()
+        if not self.should_add_keyframe(pose):
+            return None
+        self._last_kf_pose = pose
+        self._ensure_capacity(1)
+        pose_b, xyz_b, mask_b, st = self._stage([pose], [xyz], [stamp], [0])
+        args = (
+            self.state, self.robot, se3.Pose(pose_b.R[0], pose_b.t[0]),
+            xyz_b[0], mask_b[0], st[0], self.cfg,
+        )
+        detection_due = (
+            self.cfg.loop.intra_enabled
+            and self._keyframes + 1 > registry.exclude_recent(self.cfg) + 1
+        )
+        if detection_due:
+            self.state, wire, ok, match, fitness, attempt = _ingest_and_detect(*args)
+            self.icp_attempts += int(attempt)
+            self._pending_intra = (
+                {
+                    "matched_index": int(match.index),
+                    "distance": float(match.distance),
+                    "fitness": float(fitness),
+                    "yaw": float(match.yaw),
+                }
+                if bool(ok)
+                else None
+            )
+            self._pending_intra_valid = True
+        else:
+            self.state, wire = _ingest(*args)
+            self._pending_intra = None
+            self._pending_intra_valid = False
+        self._keyframes += 1
+        return to_numpy(wire)
+
+    def detect_intra_loop(self) -> dict | None:
+        """Try closing a loop on the latest own keyframe (or hand over the
+        result that :meth:`add_frame` already produced for it)."""
+        if not self.cfg.loop.intra_enabled or self._keyframes < 2:
+            return None
+        if self._pending_intra_valid:
+            self._pending_intra_valid = False
+            out, self._pending_intra = self._pending_intra, None
+            return out
+        # nothing can match while every DB entry is inside the recent-
+        # exclusion window
+        if self._keyframes <= registry.exclude_recent(self.cfg) + 1:
+            return None
+        self.state, ok, match, fitness, attempt = _detect_intra(
+            self.state, self.robot, self.cfg
+        )
+        self.icp_attempts += int(attempt)
+        if bool(ok):
+            return {
+                "matched_index": int(match.index),
+                "distance": float(match.distance),
+                "fitness": float(fitness),
+                "yaw": float(match.yaw),
+            }
+        return None
+
+    def optimize(self) -> np.ndarray:
+        """Drain the loop queue and run the pose-graph solve. Returns the
+        chi2 history (zeros when no loop factor was added)."""
+        self._drain_server_loops()
+        self.state, chi2_hist = _drain_queue_and_optimize(self.state, self.cfg)
+        return to_numpy(chi2_hist)
+
+    def attach_mesh(self, mesh, axis: str = "shard") -> None:
+        raise NotImplementedError(
+            "the mesh-attached distributed solve is not ported yet "
+            "(ROADMAP queue 1 item 17: distributed)"
+        )
+
+    def attach_bus(self, bus) -> None:
+        raise NotImplementedError(
+            "peers and the transport bus are not ported yet "
+            "(ROADMAP queue 1 item 13: inter-robot)"
+        )
+
+    def detect_inter_loop(self) -> dict | None:
+        """Inter-robot detection needs a bus (:meth:`attach_bus`); with none
+        attached there is nothing to query, as in the JAX package."""
+        return None
+
+    def _drain_server_loops(self) -> None:
+        """Factors verified for peers wait here in the JAX package; with no
+        bus there are none."""
+
+    def spin_once(self, now: float | None = None) -> dict:
+        """One loop-thread iteration: intra detection, then the drain and
+        solve when a loop closed and ``mapping_process_interval`` seconds
+        have passed since the last one (``now`` drives that throttle from a
+        simulated clock; default ``time.monotonic()``)."""
+        self._drain_server_loops()
+        info = {"loop": self.detect_intra_loop()}
+        inter = self.detect_inter_loop()
+        if inter:
+            info["inter_loop"] = inter
+        now = time.monotonic() if now is None else now
+        due = (now - self._last_opt_time) >= self.cfg.optimizer.mapping_process_interval
+        if bool(self.state.loop_closed) and due:
+            info["chi2"] = self.optimize()
+            self._last_opt_time = now
+        return info
+
+    # -- outputs --
     def trajectory(self, robot: int | None = None) -> np.ndarray:
         """Optimized keyframe poses [N, 4, 4] for a robot (own by default)."""
+        return self._traj_from(self.state, robot)
+
+    def _traj_from(self, st: MapperState, robot: int | None = None) -> np.ndarray:
+        robot = self.robot if robot is None else robot
+        K = self.cfg.keyframe.max_keyframes
+        n = int(st.counts[robot])
+        out = np.tile(np.eye(4), (n, 1, 1))
+        out[:, :3, :3] = to_numpy(st.opt_R[robot * K : robot * K + n])
+        out[:, :3, 3] = to_numpy(st.opt_t[robot * K : robot * K + n])
+        return out
+
+    def trajectory_with_stamps(self, robot: int | None = None):
+        """(poses [N, 4, 4], stamps [N]) from one state snapshot."""
+        st = self.state
+        robot = self.robot if robot is None else robot
+        K = self.cfg.keyframe.max_keyframes
+        n = int(st.counts[robot])
+        return self._traj_from(st, robot), to_numpy(st.stamps[robot * K : robot * K + n])
+
+    def keyframe_stamps(self, robot: int | None = None) -> np.ndarray:
+        return self.trajectory_with_stamps(robot)[1]
+
+    def full_trajectory(self, robot: int | None = None):
+        """(poses [N, 4, 4], stamps [N]) in keyframe-index order. Without
+        eviction (not ported yet) every keyframe is resident."""
         robot = self.robot if robot is None else robot
         K = self.cfg.keyframe.max_keyframes
         n = int(self.state.counts[robot])
-        out = np.tile(np.eye(4), (n, 1, 1))
-        out[:, :3, :3] = to_numpy(self.state.opt_R[robot * K : robot * K + n])
-        out[:, :3, 3] = to_numpy(self.state.opt_t[robot * K : robot * K + n])
-        return out
+        idx = to_numpy(self.state.desc_db.index[robot * K : robot * K + n])
+        poses, stamps = self.trajectory_with_stamps(robot)
+        order = np.argsort(idx, kind="stable")
+        return poses[order], stamps[order]
+
+    def save_trajectories(self, directory: str):
+        """TUM + KITTI export for every robot with keyframes."""
+        from ..io import trajectory as tio
+
+        os.makedirs(directory, exist_ok=True)
+        for r in range(self.cfg.number_of_robots):
+            if int(self.state.counts[r]) == 0:
+                continue
+            poses, stamps = self.full_trajectory(r)
+            name = chr(ord("a") + r)
+            tio.save_tum(os.path.join(directory, f"{name}_tum.txt"), poses, stamps)
+            tio.save_kitti(os.path.join(directory, f"{name}_kitti.txt"), poses)

@@ -58,6 +58,34 @@ def nn_inputs(seed, B, nq, nt):
     return q, np.ascontiguousarray(payload), active
 
 
+def nn_solo_inputs(seed, nq, nt, P=4):
+    """One query set and a [P, Nt] payload with exact ties planted: every
+    4th target is duplicated at the next index (identical points, where
+    the lowest index must win), a quarter of the queries sit on an integer
+    grid at unit distance from two distinct integer targets (equidistant
+    distinct points), and ~5% of the targets are invalid pads. Rows 4.. of
+    the payload (P = 8: normals and the like) are random."""
+    rng = np.random.RandomState(seed)
+    t = rng.uniform(-30, 30, (nt, 3)).astype(np.float32)
+    valid = rng.rand(nt) > 0.05
+    pick = rng.randint(0, nt, nq)
+    q = (t[pick] + rng.normal(0, 0.3, (nq, 3))).astype(np.float32)
+    t[1::4] = t[0::4][: len(t[1::4])]
+    valid[1::4] = valid[0::4][: len(valid[1::4])]
+    n_grid = min(nq // 4, nt // 8)
+    c = rng.randint(-7, 7, (n_grid, 3)).astype(np.float32) * 4.0
+    q[:n_grid] = c
+    hi = nt - 2 * n_grid
+    t[hi : hi + n_grid] = c - np.float32([1, 0, 0])   # the lower index wins
+    t[hi + n_grid :] = c + np.float32([0, 1, 0])
+    valid[hi:] = True
+    t = np.where(valid[:, None], t, 1e6).astype(np.float32)
+    extra = rng.normal(0, 1, (P - 3, nt)).astype(np.float32)
+    extra[0] = valid
+    payload = np.concatenate([t.T, extra], axis=0)
+    return q, np.ascontiguousarray(payload), n_grid
+
+
 def image_inputs(seed, B, n, R=20, S=60):
     rng = np.random.RandomState(seed)
     ring = rng.randint(0, R, (B, n)).astype(np.int32)
@@ -82,7 +110,9 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
         torch.from_numpy(z), torch.from_numpy(ring), torch.from_numpy(sector),
         torch.from_numpy(valid), 20, 60,
     )
-    assert kernels.LAUNCHES == {"nn_select_batched": 0, "max_image": 0}
+    q, payload, _ = nn_solo_inputs(6, 64, 256)
+    kernels.nn_select(torch.from_numpy(q), torch.from_numpy(payload))
+    assert kernels.LAUNCHES == {"nn_select_batched": 0, "max_image": 0, "nn_select": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -91,6 +121,10 @@ def test_wrappers_reject_bad_inputs():
         kernels.nn_select_batched(q, torch.zeros(2, 4, 16, dtype=torch.float64), torch.ones(2, dtype=torch.bool))
     with pytest.raises(ValueError):
         kernels.nn_select_batched(q, torch.zeros(3, 4, 16), torch.ones(2, dtype=torch.bool))
+    with pytest.raises(ValueError):  # a batched query
+        kernels.nn_select(q, torch.zeros(4, 16))
+    with pytest.raises(ValueError):  # fewer than 3 payload rows
+        kernels.nn_select(q[0], torch.zeros(2, 16))
     z = torch.zeros(1, 16)
     with pytest.raises(ValueError):
         kernels.max_image(z, torch.zeros(1, 16, dtype=torch.int64), torch.zeros(1, 16, dtype=torch.int32), torch.ones(1, 16, dtype=torch.bool), 20, 60)
@@ -127,3 +161,20 @@ def test_k2_cuda_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(img, ref)
     assert kernels.LAUNCHES["max_image"] == 1
+
+
+@pytest.mark.cuda
+def test_k4_cuda_kernel_matches_plain(cuda_device):
+    """d2 bit-equal and the selection equal (lowest index on exact ties) at
+    the live path's ICP shapes, at P = 8, and at ragged sizes."""
+    kernels.reset_launch_counts()
+    shapes = ((256, 4096, 4), (1024, 16384, 4), (1024, 16384, 8), (1000, 3001, 4), (7, 50, 4))
+    for nq, nt, P in shapes:
+        q, payload, _ = nn_solo_inputs(nq + P, nq, nt, P)
+        args = [torch.from_numpy(x).to(cuda_device) for x in (q, payload)]
+        d, sel = kernels.nn_select(*args)
+        d_ref, sel_ref = kernels.nn_select_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(d, d_ref)
+        assert torch.equal(sel, sel_ref)
+    assert kernels.LAUNCHES["nn_select"] == len(shapes)

@@ -129,3 +129,37 @@ def test_se3_exp_log_and_identity():
     np.testing.assert_allclose(back[:9], ref_back[:9], rtol=0, atol=2e-5)
     ident = se3.identity((4,))
     assert torch.equal(ident.R, torch.eye(3).expand(4, 3, 3)) and not ident.t.any()
+
+
+@pytest.mark.parametrize("op", ["retract", "local", "adjoint", "matrix", "take"])
+def test_se3_solver_helpers(op):
+    """The SE(3) helpers the pose-graph solver and the runner use."""
+    Ra, ta = _poses(7)
+    Rb, tb = _poses(8)
+    pa, pb = se3.Pose(torch.from_numpy(Ra), torch.from_numpy(ta)), se3.Pose(torch.from_numpy(Rb), torch.from_numpy(tb))
+    ja, jb = jse3.Pose(jnp.asarray(Ra), jnp.asarray(ta)), jse3.Pose(jnp.asarray(Rb), jnp.asarray(tb))
+    if op == "retract":
+        xi = np.random.RandomState(9).normal(0, 0.3, (16, 6)).astype(np.float32)
+        got, ref = se3.retract(pa, torch.from_numpy(xi)), jse3.retract(ja, jnp.asarray(xi))
+        np.testing.assert_allclose(_t(got.R), _j(ref.R), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(_t(got.t), _j(ref.t), rtol=2e-6, atol=2e-5)
+    elif op == "local":
+        # pairs away from a pi relative rotation (log's ill-conditioned end)
+        got, ref = _t(se3.local(pa, pa)), _j(jse3.local(ja, ja))
+        np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5)
+        near = se3.retract(pa, torch.full((16, 6), 0.2))
+        jnear = jse3.retract(ja, jnp.full((16, 6), 0.2))
+        np.testing.assert_allclose(_t(se3.local(pa, near)), _j(jse3.local(ja, jnear)), rtol=0, atol=2e-5)
+    elif op == "adjoint":
+        np.testing.assert_allclose(_t(se3.adjoint(pb)), _j(jse3.adjoint(jb)), rtol=2e-6, atol=2e-5)
+    elif op == "matrix":
+        T = _t(se3.to_matrix(pa))
+        np.testing.assert_array_equal(T, _j(jse3.to_matrix(ja)))
+        back = se3.from_matrix(torch.from_numpy(T))
+        assert torch.equal(back.R, pa.R) and torch.equal(back.t, pa.t)
+    else:
+        idx = np.array([3, 0, 15, 3], np.int32)
+        got = se3.take(pa, torch.from_numpy(idx))
+        np.testing.assert_array_equal(_t(got.R), _j(jse3.take(ja, jnp.asarray(idx)).R))
+        st = se3.stack([se3.index(pa, 2), se3.index(pb, 5)])
+        np.testing.assert_array_equal(_t(st.t), np.stack([ta[2], tb[5]]))

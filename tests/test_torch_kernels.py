@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 of the PyTorch port against the JAX package.
+"""Kernels K1, K2 and K4 of the PyTorch port against the JAX package.
 
 On the CPU the port's wrappers run their plain PyTorch versions; those
 are held here against the Pallas kernels in interpret mode (as
@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from scl_slam_tpu.ops import pallas_kernels as pk
 from scl_slam_tpu.ops.pointcloud import scatter_max_image as jax_scatter_max_image
 from scl_slam_tpu_torch.ops import kernels
-from test_torch_cuda import TIE_ATOL, image_inputs, nn_inputs
+from test_torch_cuda import TIE_ATOL, image_inputs, nn_inputs, nn_solo_inputs
 
 torch.set_num_threads(2)
 
@@ -147,3 +147,66 @@ def test_k2_plain_within_quantization_of_max_image_pallas():
     slot = 64.0 / pk.MB_K**pk.MB_PASSES
     assert np.all(tpu <= img + 1e-5)
     assert np.all(img - tpu <= slot + 1e-4)
+
+
+def _nn_solo_contract_numpy(q, payload):
+    """The K4 contract in numpy: d2 = ((dx*dx) + (dy*dy)) + (dz*dz) with
+    every step rounded to f32, the lowest target index among exact ties.
+    Also returns the second-smallest distinct d2 (to find near-ties)."""
+    dx = q[:, None, 0] - payload[None, 0]
+    dy = q[:, None, 1] - payload[None, 1]
+    dz = q[:, None, 2] - payload[None, 2]
+    d2 = ((dx * dx) + (dy * dy)) + (dz * dz)                  # [Nq, Nt]
+    idx = d2.argmin(-1)                                       # first minimum
+    best = d2[np.arange(len(q)), idx]
+    second = np.where(d2 == best[:, None], np.inf, d2).min(-1)
+    return best, payload[:, idx], second, (d2 == best[:, None]).sum(-1)
+
+
+@pytest.mark.parametrize("P", [4, 8])
+def test_k4_plain_matches_contract_and_pallas_interpret(P):
+    """d2 bit-equal and the selection exactly equal to the contract computed
+    in numpy, planted exact ties included (the lowest index wins). Against
+    the Pallas kernel in interpret mode d2 agrees to 2 ulp (rtol 2**-22,
+    the rounding-order difference of XLA:CPU described for K1), and the
+    selection is equal wherever no other target lies within that 2 ulp."""
+    nq, nt = 256, 2048
+    q, payload, n_grid = nn_solo_inputs(10 + P, nq, nt, P)
+    d, sel = kernels.nn_select(torch.from_numpy(q), torch.from_numpy(payload))
+    d, sel = d.numpy(), sel.numpy()
+    d_np, sel_np, second, ties = _nn_solo_contract_numpy(q, payload)
+    np.testing.assert_array_equal(d, d_np)
+    np.testing.assert_array_equal(sel, sel_np)
+    assert (ties > 1).sum() > 20, "too few exact ties planted"
+    # grid queries at unit distance from two distinct targets (where no
+    # random target is nearer) take the lower index: c - e_x
+    on_grid = d[:n_grid] == 1.0
+    assert on_grid.sum() > 5
+    np.testing.assert_array_equal(sel[0, :n_grid][on_grid], q[:n_grid, 0][on_grid] - 1.0)
+
+    d_ref, sel_ref = pk.nn_select_pallas(
+        jnp.asarray(q), jnp.asarray(payload), interpret=True
+    )
+    d_ref, sel_ref = np.asarray(d_ref), np.asarray(sel_ref)
+    np.testing.assert_allclose(d, d_ref, rtol=2.0**-22, atol=0)
+    clear = (second > d_np * (1 + 2.0**-21)) | (d_np == 1.0)
+    assert clear.mean() > 0.99
+    np.testing.assert_array_equal(sel[:, clear], sel_ref[:, clear])
+
+
+def test_k4_plain_chunking_no_target_and_nan():
+    """Any chunk size gives the same bits; a query with no finite distance
+    (no target, or NaN) keeps (inf, 0), as the kernel's strict < does."""
+    q, payload, _ = nn_solo_inputs(3, 100, 777, 8)
+    args = (torch.from_numpy(q), torch.from_numpy(payload))
+    d_all, sel_all = kernels.nn_select_plain(*args, chunk=777)
+    for chunk in (1, 64, 500):
+        d, sel = kernels.nn_select_plain(*args, chunk=chunk)
+        assert torch.equal(d, d_all) and torch.equal(sel, sel_all)
+    qn = args[0].clone()
+    qn[5] = float("nan")
+    d, sel = kernels.nn_select(qn, args[1])
+    assert torch.isinf(d[5]) and (sel[:, 5] == 0).all()
+    assert torch.equal(d[:5], d_all[:5]) and torch.equal(sel[:, 6:], sel_all[:, 6:])
+    d, sel = kernels.nn_select(args[0], args[1][:, :0])
+    assert torch.isinf(d).all() and sel.shape == (8, 100) and (sel == 0).all()

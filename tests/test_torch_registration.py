@@ -1,4 +1,4 @@
-"""Batched ICP of the PyTorch port against the JAX package.
+"""Solo and batched ICP of the PyTorch port against the JAX package.
 
 On the CPU the JAX ``_matches_batched`` takes ``vmap(nearest_select)``,
 which ranks neighbours by the expanded form |q|^2 - 2 q.t + |t|^2 and
@@ -14,10 +14,13 @@ the converged lanes' poses and fitness to stated tolerances: rotation
 fitness 2e-3 relative + 1e-5 absolute. The hopeless lane stops where its
 stall counter trips, so only its decision is compared.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from scl_slam_tpu.geometry import se3 as jse3
@@ -102,3 +105,51 @@ def test_kabsch_matches_jax():
     np.testing.assert_allclose(got.R.numpy(), np.asarray(ref.R), rtol=0, atol=1e-5)
     np.testing.assert_allclose(got.t.numpy(), np.asarray(ref.t), rtol=0, atol=1e-4)
     np.testing.assert_allclose(got.R.numpy(), R, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("reuse_final_fitness", [True, False])
+def test_icp_solo_matches_jax(reuse_final_fitness):
+    """The live path's solo ``icp`` (K4's contract: the lowest index on
+    exact ties) against JAX's solo ``icp`` (on the CPU: the expanded-form
+    argmin + gather of ``nearest_select``), one converging lane and one
+    hopeless lane of the batched test's inputs, with its tolerances."""
+    src, smask, tgt, tmask, _ = _lanes(2)
+    kw = dict(max_iters=20, max_corr_dist=10.0, tol=1e-4, coarse_factor=4,
+              gate_fitness=0.3, reuse_final_fitness=reuse_final_fitness)
+    jicp = jax.jit(functools.partial(jreg.icp, **kw))
+    for b, converges in ((1, True), (4, False)):
+        got = reg.icp(
+            pc.Cloud(torch.from_numpy(src[b]), torch.from_numpy(smask[b])),
+            pc.Cloud(torch.from_numpy(tgt[b]), torch.from_numpy(tmask[b])), **kw,
+        )
+        ref = jicp(
+            jpc.Cloud(jnp.asarray(src[b]), jnp.asarray(smask[b])),
+            jpc.Cloud(jnp.asarray(tgt[b]), jnp.asarray(tmask[b])),
+        )
+        fit, rfit = float(got.fitness), float(ref.fitness)
+        assert (fit < 0.3) == (rfit < 0.3) == converges
+        assert bool(got.converged) == bool(ref.converged)
+        if converges:
+            np.testing.assert_allclose(fit, rfit, rtol=2e-3, atol=1e-5)
+            np.testing.assert_allclose(got.pose.R.numpy(), np.asarray(ref.pose.R), rtol=0, atol=2e-4)
+            np.testing.assert_allclose(got.pose.t.numpy(), np.asarray(ref.pose.t), rtol=0, atol=2e-3)
+            np.testing.assert_allclose(float(got.inlier_frac), float(ref.inlier_frac), atol=2e-3)
+
+
+def test_nearest_select_matches_jax_on_tie_free_targets():
+    """On the CPU JAX's ``nearest_select`` ranks by the expanded form; with
+    no near-ties within its error the winners and payload columns equal the
+    port's, and d2 agrees to that form's absolute error."""
+    rng = np.random.RandomState(3)
+    q = rng.uniform(-20, 20, (300, 3)).astype(np.float32)
+    payload = np.concatenate(
+        [rng.uniform(-20, 20, (3, 2000)), rng.normal(0, 1, (5, 2000))]
+    ).astype(np.float32)
+    d2, sel = reg.nearest_select(torch.from_numpy(q), torch.from_numpy(payload))
+    rd2, rsel = jreg.nearest_select(jnp.asarray(q), jnp.asarray(payload))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(rd2), rtol=0, atol=1e-3)
+    d_all = ((q[:, None] - payload[:3].T[None]) ** 2).sum(-1)
+    part = np.partition(d_all, 1, axis=1)
+    clear = part[:, 1] - part[:, 0] > 1e-2
+    assert clear.mean() > 0.95
+    np.testing.assert_array_equal(sel.numpy()[:, clear], np.asarray(rsel)[:, clear])

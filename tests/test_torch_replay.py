@@ -12,6 +12,8 @@ test_torch_registration.py); ICP fitness 2e-2 relative (the same, summed
 over a few hundred correspondences); chained poses 1e-4 m and descriptor
 keys 1e-5 (f32 sums in another order; a sector-boundary atan2 ulp).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from scl_slam_tpu.io import kitti
 from scl_slam_tpu.runtime.mapper import Mapper as JMapper
 from scl_slam_tpu_torch import config as tconfig
 from scl_slam_tpu_torch.geometry import se3
+from scl_slam_tpu_torch.io import trajectory as tio
 from scl_slam_tpu_torch.runtime import mapper as M
 from scl_slam_tpu_torch.runtime.state import state_from_numpy, state_to_numpy
 from test_torch_kernels import release_jax_programs  # noqa: F401 (autouse)
@@ -166,9 +169,46 @@ def test_gate_and_unported_paths_raise():
         m.replay(poses, scans, transfer="f16")
     with pytest.raises(NotImplementedError):  # eviction
         m._ensure_capacity(cfg.keyframe.max_keyframes)
-    with pytest.raises(NotImplementedError):  # drain + solve
-        m._ensure_queue_headroom(cfg.loop.queue_capacity + 1)
+    # a batch that could overflow the loop queue drains it (and solves)
+    # first; it used to raise
+    m._ensure_queue_headroom(cfg.loop.queue_capacity + 1)
+    assert int(m.state.loop_queue.count) == 0
     with pytest.raises(NotImplementedError):
-        M.Mapper(tconfig.SlamConfig(descriptor_type=tconfig.DescriptorType.M2DP))
+        M.Mapper(tconfig.SlamConfig(descriptor_type=tconfig.DescriptorType.M2DP), "cpu")
     with pytest.raises(NotImplementedError):
         M._prepare_cloud(None, tconfig.SlamConfig(keyframe=tconfig.KeyframeConfig(storage_downsample="voxel")))
+
+
+def test_replay_that_overflows_the_queue_drains(workload):
+    """With a loop queue smaller than a chunk, every chunk first drains the
+    queue into the graph and solves (``_ensure_queue_headroom``), in the
+    port as in the JAX package: the same loops, loop-factor rows and (after
+    a rigid alignment, for the near-gauge freedom of the weak prior) the
+    same trajectory within 5e-3 m."""
+    R, t, scans, stamps = workload
+    kw = dict(apply_gate=False, batch=4, chunk_batches=2)
+
+    def small_queue(mod):
+        c = _cfg(mod)
+        return mod.SlamConfig(
+            keyframe=c.keyframe, scan_context=c.scan_context,
+            loop=dataclasses.replace(c.loop, queue_capacity=8),
+            optimizer=mod.OptimizerConfig(edge_capacity=128, gn_iters=4, cg_iters=24),
+        )
+
+    n_frames = 48  # six whole chunks of 8
+    jm = JMapper(small_queue(jconfig))
+    jout = jm.replay([jse3.Pose(jnp.asarray(R[k]), jnp.asarray(t[k])) for k in range(n_frames)],
+                     scans[:n_frames], stamps[:n_frames], **kw)
+    m = M.Mapper(small_queue(tconfig), "cpu")
+    out = m.replay(_port_poses(R, t)[:n_frames], scans[:n_frames], stamps[:n_frames], **kw)
+    _same_loops(out["loops"], jout["loops"])
+    n = int(jm.state.graph.num_edges)
+    n_loops = sum(1 for x in out["loops"] if x)
+    assert int(m.state.graph.num_edges) == n > n_frames - 1, "no loop factor was drained"
+    assert n_loops > 8 and int(m.state.loop_queue.count) == int(jm.state.loop_queue.count)
+    np.testing.assert_array_equal(m.state.graph.i.numpy()[:n], np.asarray(jm.state.graph.i)[:n])
+    np.testing.assert_array_equal(m.state.graph.j.numpy()[:n], np.asarray(jm.state.graph.j)[:n])
+    got, ref = m.trajectory()[:, :3, 3], jm.trajectory()[:, :3, 3]
+    _, Ra, ta = tio.umeyama_align(got, ref)
+    np.testing.assert_allclose((Ra @ got.T).T + ta, ref, rtol=0, atol=5e-3)
