@@ -41,7 +41,25 @@ Phases (any failure raises, and the script exits non-zero):
    points through ``add_frame`` + ``spin_once`` (per-keyframe p50/p99 ms,
    ICP attempts, K2/K4 launches), then 32 ground-truth loop factors queued
    and one ``Mapper.optimize()`` timed at the full 4,096-pose / 8,192-edge
-   capacity against the 0.3 s ``mapping_process_interval``.
+   capacity against the 0.3 s ``mapping_process_interval``;
+10. K3 (solo 1-NN: distance and index, lowest index on exact ties) against
+   its plain version on the card at 256 x 4,096, 4,096 x 8,192 (the
+   default configuration's verification) and 4,096 x 16,384 (the
+   kitti_velodyne widths), with planted exact ties and padded targets: d2
+   bit-equal, index equal;
+11. the inter-robot path: ``python -m scl_slam_tpu_torch.run_multi --robots
+   2`` with its defaults (120 frames, the default ``SlamConfig``) on the
+   card, with every inter-robot layer timed alone (a synchronize before
+   and after each); it must verify inter-robot loops, with one K3 launch
+   per verification; prints the loops, the wall time, per-verification ms
+   (p50/p99), the layers' times and the joint ATE, and replays 10 of its
+   verification RPCs under torch.profiler (the table goes to
+   ``chiprun_out/profile_verify.txt``); then ``--robots 3``; then a
+   reduced two-robot session on the CPU and on the
+   card, which must make the same retrieval hits and inter-loop decisions,
+   with the trajectories within the stated tolerance;
+12. ``run_multi --robots 2 --transport tcp`` on the card: two worker
+   processes share it and verify inter-robot loops over sockets.
 
 Kernel times are CUDA events around replays of a CUDA graph of the call
 (device time without the host's launch cost), beside the eager call's
@@ -824,6 +842,272 @@ def phase_live_kitti(torch, kernels) -> dict:
     return launches
 
 
+def k3_inputs(torch, nq, nt, seed):
+    """Queries are noisy copies of target points; every 4th target is
+    duplicated at the next index (the lower index must win); a quarter of
+    the queries sit on an integer grid at unit distance from two distinct
+    targets; ~5% of the targets are pads at 1e6."""
+    rng = np.random.RandomState(seed)
+    t = rng.uniform(-40, 40, (nt, 3)).astype(np.float32)
+    q = (t[rng.randint(0, nt, nq)] + rng.normal(0, 0.3, (nq, 3))).astype(np.float32)
+    t[1::4] = t[0::4][: len(t[1::4])]
+    n_grid = min(nq // 4, nt // 8)
+    c = rng.randint(-9, 9, (n_grid, 3)).astype(np.float32) * 4.0
+    q[:n_grid] = c
+    hi = nt - 2 * n_grid
+    t[hi : hi + n_grid] = c - np.float32([1, 0, 0])
+    t[hi + n_grid :] = c + np.float32([0, 1, 0])
+    pad = rng.rand(nt) < 0.05
+    pad[hi:] = False
+    t[pad] = 1e6
+    dev = torch.device("cuda")
+    return torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev), n_grid, hi
+
+
+def phase_k3(torch, kernels) -> dict:
+    res = {}
+    for nq, nt, label in ((4096, 8192, "full"), (256, 4096, "small"), (4096, 16384, "kitti")):
+        q, t, n_grid, hi = k3_inputs(torch, nq, nt, seed=nq + nt)
+        d, idx = kernels.nearest_neighbors(q, t)
+        d_p, idx_p = kernels.nearest_neighbors_plain(q, t)
+        torch.cuda.synchronize()
+        if not torch.equal(d, d_p):
+            raise AssertionError(f"K3 {label}: d2 differs from the plain version in "
+                                 f"{(d != d_p).sum().item()} places")
+        if not torch.equal(idx, idx_p):
+            raise AssertionError(f"K3 {label}: index differs in {(idx != idx_p).sum().item()} places")
+        on_grid = d[:n_grid] == 1.0
+        if int(on_grid.sum()) < 4 or not bool((idx[:n_grid][on_grid] < hi + n_grid).all()):
+            raise AssertionError(f"K3 {label}: the planted equidistant ties did not take the lower index")
+        if bool((t[idx.long(), 0] == 1e6).any()):
+            raise AssertionError(f"K3 {label}: a pad target was nearest")
+        call_ms = time_cuda(torch, lambda: kernels.nearest_neighbors(q, t), reps=50)
+        ms = time_graph(torch, lambda: kernels.nearest_neighbors(q, t), reps=50)
+        plain_ms = time_graph(torch, lambda: kernels.nearest_neighbors_plain(q, t), reps=5)
+        bound_ms, bound_by = bound(4 * (nq * 3 + nt * 3 + nq + nq), 9 * nq * nt)
+        log(f"[10] K3 {label} {nq}x{nt}: d2 bit-equal, index equal ({int(on_grid.sum())} planted "
+            f"equidistant ties), kernel {ms:.4f} ms (eager call {call_ms:.4f} ms, chunking "
+            f"{kernels._k4_chunking(nq, nt)}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        res[label] = {"max_abs_err": float((d - d_p).abs().max().item()), "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return res
+
+
+def run_multi_report(argv) -> tuple[int, dict]:
+    """``run_multi.main(argv)``; returns (exit code, its JSON report)."""
+    import contextlib
+    import io
+
+    from scl_slam_tpu_torch import run_multi
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_multi.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if rc == 0 and lines else {})
+
+
+def patched(obj, name, wrap):
+    """Replace ``obj.name`` by ``wrap(original)``; returns the undo."""
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    return lambda: setattr(obj, name, orig)
+
+
+def timing(torch, acc, key):
+    """A wrapper maker that records each call's milliseconds under ``key``,
+    a synchronize before and after (so each layer is timed alone)."""
+    def wrap(fn):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc.setdefault(key, []).append((time.perf_counter() - t) * 1e3)
+            return out
+        return timed
+    return wrap
+
+
+def reduced_multi_cfg(r: int):
+    """The reduced two-robot configuration (tests/test_torch_inter.py's
+    session: tests/test_multi_robot.py's widths)."""
+    from scl_slam_tpu_torch.config import (
+        KeyframeConfig, LoopConfig, OptimizerConfig, ScanContextParams, SlamConfig,
+    )
+
+    return SlamConfig(
+        number_of_robots=2, robot_id=r, robot_name=chr(ord("a") + r),
+        keyframe=KeyframeConfig(max_keyframes=64, points_per_keyframe=2048,
+                                raw_points_capacity=4096, distance_threshold=2.0,
+                                descript_leaf_size=0.3),
+        loop=LoopConfig(near_keyframes=4, submap_capacity=8192, icp_iterations=20,
+                        history_fitness_score=8.0, ransac_inlier_ratio=0.3,
+                        ransac_outlier_threshold=1.0),
+        optimizer=OptimizerConfig(edge_capacity=512, gn_iters=6, cg_iters=48,
+                                  odometry_sigmas=(0.005,) * 3 + (0.05,) * 3,
+                                  loop_noise_scale=0.05),
+        scan_context=ScanContextParams(exclude_recent=10, num_candidates=6),
+    )
+
+
+def reduced_multi_session(torch, device: str):
+    """Two robots over the in-process bus: robot a at frames 16-39 of a
+    35 m circle with ground-truth odometry, robot b at 32-47 drifting 5 cm
+    and 1 mrad a frame. Returns (retrieval hits, verified loops, robot a's
+    view of both trajectories, seconds)."""
+    from scl_slam_tpu_torch.geometry import se3
+    from scl_slam_tpu_torch.io import kitti as kio
+    from scl_slam_tpu_torch.runtime import mapper as M
+    from scl_slam_tpu_torch.runtime.transport import LocalBus
+
+    world = kio.SyntheticWorld(seed=5, extent=100.0, n_clusters=70, pts_per_cluster=800)
+    gt = kio.loop_trajectory(n_frames=80, radius=35.0, revisit=False)
+    split = [list(range(16, 40)), list(range(32, 48))]
+    drift = se3.to_matrix(se3.exp(torch.tensor([0, 0, 0.001, 0.05, 0, 0]))).numpy()
+    odom = {0: {k: gt[k] for k in split[0]}, 1: {split[1][0]: gt[split[1][0]]}}
+    for k in split[1][1:]:
+        odom[1][k] = odom[1][k - 1] @ np.linalg.inv(gt[k - 1]) @ gt[k] @ drift
+    hits = []
+
+    def recording(fn):
+        def detect(state, robot, cfg):
+            out = fn(state, robot, cfg)
+            if bool(out[0]):
+                hits.append((robot, int(out[1].robot), int(out[1].index)))
+            return out
+        return detect
+
+    undo = patched(M, "_detect_inter", recording)
+    try:
+        bus = LocalBus()
+        ms = [M.Mapper(reduced_multi_cfg(r), device) for r in range(2)]
+        for m in ms:
+            m.attach_bus(bus)
+        inter = []
+        t = time.perf_counter()
+        for step in range(max(len(s) for s in split)):
+            for r, frames in enumerate(split):
+                if step >= len(frames):
+                    continue
+                k = frames[step]
+                T = odom[r][k].astype(np.float32)
+                wire = ms[r].add_frame(se3.Pose(T[:3, :3], T[:3, 3]),
+                                       world.scan_at(gt[k], max_points=4096, seed=k), stamp=0.1 * k)
+                if wire is not None:
+                    ms[r].broadcast_latest(wire)
+                    x = ms[r].spin_once(now=0.1 * k).get("inter_loop")
+                    if x:
+                        inter.append((r, k, x["robot"], x["matched_index"], x["inlier_ratio"]))
+        for m in ms:
+            m.optimize()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        undo()
+    return hits, inter, [ms[0].trajectory(robot=r) for r in range(2)], secs
+
+
+def phase_multi(torch, kernels) -> dict:
+    """Phase 11; returns the kernel launch counts of the default two-robot
+    run."""
+    from scl_slam_tpu_torch.io import trajectory as tio
+    from scl_slam_tpu_torch.runtime import mapper as M
+
+    from scl_slam_tpu_torch.runtime.transport import LocalBus
+
+    out_dir = os.path.join(ROOT, "chiprun_out", "run_multi")
+    # every inter-robot layer timed alone (a synchronize before and after)
+    acc: dict = {}
+    last = []  # the last (mapper, request) served, replayed under the profiler
+
+    def timed_serve(fn):
+        timed = timing(torch, acc, "serve_verification")(fn)
+
+        def serve(self, req):
+            last[:] = [self, req]
+            return timed(self, req)
+        return serve
+
+    undos = [patched(M, name, timing(torch, acc, name)) for name in (
+        "_ingest_peer", "_detect_inter", "_verify_inputs", "_verify_align", "_queue_loop",
+        "_drain_queue_and_optimize")]
+    undos += [patched(M.Mapper, name, timing(torch, acc, name)) for name in (
+        "add_frame", "broadcast_latest")]
+    undos.append(patched(M.Mapper, "serve_verification", timed_serve))
+    undos.append(patched(LocalBus, "verify", timing(torch, acc, "LocalBus.verify")))
+    # K3's own wrapper is timed from the outside; its count moves only in
+    # kernels.nearest_neighbors itself
+    undos.append(patched(kernels, "nearest_neighbors", timing(torch, acc, "K3 nearest_neighbors")))
+    try:
+        kernels.reset_launch_counts()
+        rc, rep = run_multi_report(["--robots", "2", "--output", out_dir])
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for u in reversed(undos):
+            u()
+    serve_ms = acc.get("serve_verification", [])
+    log(f"[11] run_multi --robots 2 (defaults) -> {json.dumps(rep)}")
+    log(f"[11] launches {launches}; {len(serve_ms)} verifications served")
+    if rc != 0 or rep["inter_loops"] < 1:
+        raise AssertionError(f"the two-robot run verified no inter-robot loop (rc {rc})")
+    if launches["nearest_neighbors"] != len(serve_ms) or not serve_ms:
+        raise AssertionError(f"K3 launches {launches['nearest_neighbors']} != verifications {len(serve_ms)}")
+    if not all(np.isfinite(v) and v < 1.0 for v in rep["ate_rmse_m"].values()):
+        raise AssertionError(f"joint ATE out of bounds: {rep['ate_rmse_m']}")
+    v = np.array(serve_ms)
+    log(f"[11] inter {rep['inter_loops']}, intra {rep['intra_loops']} loops; wall {rep['wall_s']} s "
+        f"(with the layers' synchronizes); per verification (serve side) p50 "
+        f"{np.percentile(v, 50):.2f} ms, p99 {np.percentile(v, 99):.2f} ms, max {v.max():.2f} ms; "
+        f"joint ATE {rep['ate_rmse_m']} m")
+    log("[11] layers of the two-robot run, each timed alone (inclusive ms: calls, total, p50, p99):")
+    for name, vals in sorted(acc.items(), key=lambda kv: -sum(kv[1])):
+        a = np.array(vals)
+        log(f"[11]   {name:28s} {len(a):5d} calls  {a.sum():9.1f} ms  p50 {np.percentile(a, 50):7.3f}  "
+            f"p99 {np.percentile(a, 99):7.3f}")
+
+    mapper, req = last
+    profile_block(torch, "[11]", "10 verification RPCs of the run (serve side) replayed",
+                  lambda: [mapper.serve_verification(req) for _ in range(10)], "profile_verify.txt")
+    del mapper, req, last[:]
+
+    rc3, rep3 = run_multi_report(["--robots", "3", "--output", out_dir + "3"])
+    log(f"[11] run_multi --robots 3 (defaults) -> {json.dumps(rep3)}")
+    if rc3 != 0 or rep3["inter_loops"] < 1 or len(rep3["ate_rmse_m"]) != 3:
+        raise AssertionError(f"the three-robot run failed (rc {rc3})")
+
+    runs = {d: reduced_multi_session(torch, d) for d in ("cpu", "cuda")}
+    (hc, ic, tc, sc), (hg, ig, tg, sg) = runs["cpu"], runs["cuda"]
+    if hc != hg:
+        raise AssertionError(f"retrieval hits differ: cpu {hc} cuda {hg}")
+    if [x[:4] for x in ic] != [x[:4] for x in ig] or not ic:
+        raise AssertionError(f"inter-loop decisions differ: cpu {ic} cuda {ig}")
+    # stated tolerances: the same RANSAC draws on both devices, so the
+    # inlier ratios agree to a few inliers (the devices' SVD and sums
+    # differ in the last bits: 5e-3); the trajectories after a rigid
+    # alignment to 2e-2 m (phase 8's, for the same reasons)
+    dratio = float(np.max(np.abs(np.array([x[4] for x in ic]) - np.array([x[4] for x in ig]))))
+    dtraj = 0.0
+    for a, b in zip(tc, tg):
+        _, Ra, ta = tio.umeyama_align(b[:, :3, 3], a[:, :3, 3])
+        dtraj = max(dtraj, float(np.abs((Ra @ b[:, :3, 3].T).T + ta - a[:, :3, 3]).max()))
+    if dratio > 5e-3 or dtraj > 2e-2:
+        raise AssertionError(f"cpu/cuda disagree: inlier ratio {dratio}, aligned trajectory {dtraj} m")
+    log(f"[11] reduced two-robot session (40 frames): {len(hc)} retrieval hits and {len(ic)} verified "
+        f"inter loops, equal on cpu ({sc:.1f} s) and cuda ({sg:.2f} s); max |d inlier ratio| "
+        f"{dratio:.2e}, aligned trajectories within {dtraj:.2e} m")
+    return launches
+
+
+def phase_tcp(torch) -> None:
+    rc, rep = run_multi_report(["--robots", "2", "--transport", "tcp",
+                                "--output", os.path.join(ROOT, "chiprun_out", "run_multi_tcp")])
+    log(f"[12] run_multi --robots 2 --transport tcp -> {json.dumps(rep)}")
+    if rc != 0 or rep["inter_loops"] < 1 or rep["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the tcp run on the card verified no inter-robot loop (rc {rc})")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "scl_slam_tpu_torch")):
         raise RuntimeError(
@@ -843,6 +1127,9 @@ def main() -> int:
     k4 = phase_k4(torch, kernels)
     live = phase_live_demo(torch, kernels)
     phase_live_kitti(torch, kernels)
+    k3 = phase_k3(torch, kernels)
+    multi = phase_multi(torch, kernels)
+    phase_tcp(torch)
 
     def entry(name, source, replaces, n, res, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"scl_slam_tpu_torch/csrc/{source}",
@@ -851,12 +1138,14 @@ def main() -> int:
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": library_ms}
 
     # launches: K1 and K2 from the replay run (phase 5), K4 from the live
-    # demo (phase 8); K1 and K4 have no single PyTorch call (library_ms null)
+    # demo (phase 8), K3 from the two-robot run (phase 11); K1, K3 and K4
+    # have no single PyTorch call (library_ms null)
     report = {"kernels": [
         entry("nn_select_batched", "nn_select_batched.cu", 273,
               launches["nn_select_batched"], k1["full"]),
         entry("max_image", "max_image.cu", 1053, launches["max_image"], k2, k2["library_ms"]),
         entry("nn_select", "nn_select.cu", 132, live["nn_select"], k4["full"]),
+        entry("nearest_neighbors", "nn_select.cu", 532, multi["nearest_neighbors"], k3["full"]),
     ]}
     log(f"card: {smi}")
     print(json.dumps(report), flush=True)

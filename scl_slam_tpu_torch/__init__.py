@@ -9,7 +9,9 @@ C++ (``csrc/``, bound in ``ops/kernels.py``). This package never imports
 
 Ported so far: the keyframe replay path (``Mapper.replay``), the live
 single-robot path (``Mapper.add_frame`` / ``spin_once`` / ``optimize``,
-driven by ``python -m scl_slam_tpu_torch.run``) and the pose-graph solve.
+driven by ``python -m scl_slam_tpu_torch.run``), the pose-graph solve, and
+the decentralized inter-robot path (descriptors over a bus, RANSAC
+verification by RPC, driven by ``python -m scl_slam_tpu_torch.run_multi``).
 ``Mapper`` runs on the GPU unless it is given ``device="cpu"``. What is
 still to come is listed in ``ROADMAP.md``.
 """

@@ -1,9 +1,19 @@
-// K4: solo 1-NN + payload selection, lowest index on exact ties ("argmin").
+// K4: solo 1-NN + payload selection, lowest index on exact ties ("argmin"),
+// and K3: solo 1-NN (distance and index), which shares K4's first pass.
 //
-// Replaces scl_slam_tpu/ops/pallas_kernels.py::nn_select_pallas (kernel body
-// _nn_select_kernel). It runs in every iteration of the solo ICP of the live
-// path (ops/registration.py::nearest_select, called by _icp_stage and by the
-// final fitness pass of icp).
+// K4 replaces scl_slam_tpu/ops/pallas_kernels.py::nn_select_pallas (kernel
+// body _nn_select_kernel). It runs in every iteration of the solo ICP of the
+// live path (ops/registration.py::nearest_select, called by _icp_stage and by
+// the final fitness pass of icp).
+//
+// K3 replaces pallas_kernels.py::nearest_neighbors_pallas (kernel body
+// _nn_kernel). It runs once in every inter-robot geometric verification
+// (ops/registration.py::nearest_neighbors, called by ransac_align on the
+// server side of the verification RPC). Its contract is K4's without the
+// payload: d[q] as below, idx[q] = the lowest target index at exactly that d,
+// and a query that no target beats gives (inf, 0). Its target is [Nt, 3]
+// (xyz interleaved) where K4's payload is [P, Nt]: pass 1 reads either
+// layout through a (row, column) stride pair.
 //
 // Contract (the plain version is ops/kernels.py::nn_select_plain):
 //   query [Nq, 3], payload [P, Nt] (rows 0-2 target xyz with invalid points
@@ -23,7 +33,8 @@
 // three subtract-multiply steps, two adds and a compare in plain FP32; the
 // live path's full-resolution pass is 1,024 x 16,384 = 16.8 M pairs, its
 // coarse pass 256 x 4,096. With one thread per query that is only 8 blocks of
-// 128 threads: 8 of the 132 SMs.
+// 128 threads: 8 of the 132 SMs. K3's verification pass is 4,096 x 8,192 at
+// the default configuration (33.6 M pairs, 32 query blocks).
 //
 // Design: split the targets as well as the queries. Pass 1 runs a grid of
 // (query blocks x target chunks); each thread keeps its query's running
@@ -33,7 +44,8 @@
 // takes the minimum over the chunks in ascending chunk order with a strict <
 // (smaller d, then lower index: chunks are ascending in target index, and
 // within a chunk the first minimum is kept) and gathers the winner's payload
-// column. The wrapper counts the two launches as one call of K4.
+// column (K4) or writes its index (K3). Each wrapper counts its two launches
+// as one call.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -48,7 +60,8 @@ nn_select_partial_kernel(const float* __restrict__ query,
                          const float* __restrict__ payload,
                          float* __restrict__ part_d,
                          int32_t* __restrict__ part_i,
-                         int nq, int nt, int chunk) {
+                         int nq, int nt, int chunk,
+                         size_t row_stride, size_t col_stride) {
   __shared__ float tile[3][kTile];
   const int c = blockIdx.y;
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -68,9 +81,10 @@ nn_select_partial_kernel(const float* __restrict__ query,
     const int n = min(kTile, c1 - t0);
     __syncthreads();  // previous tile fully consumed
     for (int k = threadIdx.x; k < n; k += kThreads) {
-      tile[0][k] = payload[t0 + k];
-      tile[1][k] = payload[static_cast<size_t>(nt) + t0 + k];
-      tile[2][k] = payload[2 * static_cast<size_t>(nt) + t0 + k];
+      const size_t col = static_cast<size_t>(t0 + k) * col_stride;
+      tile[0][k] = payload[col];
+      tile[1][k] = payload[row_stride + col];
+      tile[2][k] = payload[2 * row_stride + col];
     }
     __syncthreads();
     for (int j = 0; j < n; ++j) {
@@ -114,6 +128,29 @@ __global__ void nn_select_finish_kernel(const float* __restrict__ part_d,
   }
 }
 
+// K3's pass 2: the same ascending strict-< minimum over the chunks as K4's,
+// writing the winner's index (0 where no target beat inf) instead of a
+// payload column.
+__global__ void nearest_neighbors_finish_kernel(const float* __restrict__ part_d,
+                                                const int32_t* __restrict__ part_i,
+                                                float* __restrict__ d_out,
+                                                int32_t* __restrict__ idx_out,
+                                                int nq, int chunks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  float best = CUDART_INF_F;
+  int arg = -1;
+  for (int c = 0; c < chunks; ++c) {
+    const float d = part_d[static_cast<size_t>(c) * nq + i];
+    if (d < best) {
+      best = d;
+      arg = part_i[static_cast<size_t>(c) * nq + i];
+    }
+  }
+  d_out[i] = arg >= 0 ? fmaxf(best, 0.0f) : CUDART_INF_F;
+  idx_out[i] = arg >= 0 ? arg : 0;
+}
+
 }  // namespace
 
 extern "C" int scl_nn_select(const float* query, const float* payload,
@@ -124,8 +161,8 @@ extern "C" int scl_nn_select(const float* query, const float* payload,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((nq + kThreads - 1) / kThreads, chunks);
-  nn_select_partial_kernel<<<grid, kThreads, 0, s>>>(query, payload, part_d,
-                                                     part_i, nq, nt, chunk);
+  nn_select_partial_kernel<<<grid, kThreads, 0, s>>>(
+      query, payload, part_d, part_i, nq, nt, chunk, static_cast<size_t>(nt), 1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int finish_threads = 128;
@@ -133,5 +170,26 @@ extern "C" int scl_nn_select(const float* query, const float* payload,
                             finish_threads, 0, s>>>(part_d, part_i, payload,
                                                     d_out, sel_out, nq, nt,
                                                     rows, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3: target [Nt, 3] (row stride 1, column stride 3 in pass 1's terms).
+extern "C" int scl_nearest_neighbors(const float* query, const float* target,
+                                     float* part_d, int32_t* part_i,
+                                     float* d_out, int32_t* idx_out, int nq,
+                                     int nt, int chunk, int chunks, int device,
+                                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((nq + kThreads - 1) / kThreads, chunks);
+  nn_select_partial_kernel<<<grid, kThreads, 0, s>>>(
+      query, target, part_d, part_i, nq, nt, chunk, 1, 3);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int finish_threads = 128;
+  nearest_neighbors_finish_kernel<<<(nq + finish_threads - 1) / finish_threads,
+                                    finish_threads, 0, s>>>(
+      part_d, part_i, d_out, idx_out, nq, chunks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,6 +37,27 @@ def make_db(
     )
 
 
+def db_insert(
+    db: DescriptorDB,
+    descriptor: torch.Tensor,
+    key: torch.Tensor,
+    robot: int,
+    index: int,
+    pos: int,
+) -> DescriptorDB:
+    """Single-row insert at row ``pos`` (the global keyframe slot: in a
+    multi-robot run the rows are not filled in arrival order), in place; a
+    no-op when ``pos`` lies outside the DB."""
+    if not 0 <= pos < db.robot.shape[0]:
+        return db
+    db.descriptors[pos] = descriptor.to(db.descriptors.dtype)
+    db.keys[pos] = key.to(db.keys.dtype)
+    db.robot[pos] = robot
+    db.index[pos] = index
+    db.count.add_(1)
+    return db
+
+
 def db_insert_block(
     db: DescriptorDB,
     descriptors: torch.Tensor,

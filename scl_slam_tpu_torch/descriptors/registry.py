@@ -22,7 +22,9 @@ class Family:
     descriptors of slots [B] back as a batch; ``query(db, desc, robot,
     indices, mode)`` retrieves for a batch of frames; ``parts(desc)`` gives
     the (full DB array, retrieval key) pair that ``base.db_insert_block``
-    stores; ``to_wire(desc)`` flattens one descriptor for broadcast.
+    stores; ``to_wire(desc)`` flattens one descriptor for broadcast and
+    ``from_wire(values)`` decodes one; ``insert(db, desc, robot, index,
+    pos)`` stores one descriptor at slot ``pos``.
     """
 
     name: str
@@ -32,6 +34,8 @@ class Family:
     query: Callable
     parts: Callable
     to_wire: Callable
+    from_wire: Callable
+    insert: Callable
 
 
 def exclude_recent(cfg: SlamConfig) -> int:
@@ -62,7 +66,9 @@ def get_family(cfg: SlamConfig) -> Family:
                 db, d, r, i, sc_cfg, mode=mode
             ),
             parts=lambda d: (d.image, d.ring_key),
-            to_wire=lambda d: d.image.reshape(-1),
+            to_wire=scan_context.to_wire,
+            from_wire=lambda v: scan_context.from_wire(v, sc_cfg),
+            insert=scan_context.insert,
         )
     raise NotImplementedError(
         f"descriptor_type {kind.value!r} is not ported yet "

@@ -100,6 +100,23 @@ def make_db(capacity: int, cfg: ScanContextConfig, device) -> base.DescriptorDB:
     )
 
 
+def insert(
+    db: base.DescriptorDB, sc: ScanContext, robot: int, index: int, pos: int
+) -> base.DescriptorDB:
+    return base.db_insert(db, sc.image, sc.ring_key, robot, index, pos)
+
+
+def from_wire(values: torch.Tensor, cfg: ScanContextConfig) -> ScanContext:
+    """Decode a broadcast float vector (the flat image); the ring and
+    sector keys are recomputed from it."""
+    img = values.reshape(cfg.num_rings, cfg.num_sectors)
+    return ScanContext(img, img.mean(dim=1), img.mean(dim=0))
+
+
+def to_wire(sc: ScanContext) -> torch.Tensor:
+    return sc.image.reshape(-1)
+
+
 def query(
     db: base.DescriptorDB,
     sc: ScanContext,

@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels of the replay and live paths, their plain
-PyTorch versions, and the build that binds them (counterpart of
-``scl_slam_tpu/ops/pallas_kernels.py``).
+"""Hand-written CUDA kernels of the replay, live and inter-robot paths,
+their plain PyTorch versions, and the build that binds them (counterpart
+of ``scl_slam_tpu/ops/pallas_kernels.py``).
 
 ========  ==============================  ===================================
 kernel    replaces (TPU, Pallas)          source
@@ -9,6 +9,8 @@ K1        ``nn_select_batched_pallas``    ``csrc/nn_select_batched.cu``
           (variant ``mineq``)
 K2        ``max_image_pallas`` (exact     ``csrc/max_image.cu``
           here; see the source)
+K3        ``nearest_neighbors_pallas``    ``csrc/nn_select.cu`` (shares
+                                          K4's first pass)
 K4        ``nn_select_pallas``            ``csrc/nn_select.cu``
 ========  ==============================  ===================================
 
@@ -18,8 +20,8 @@ kernels are compiled on first use with ``nvcc`` (for ``sm_90a``, with
 ``-fmad=false`` so no multiply-add is contracted) into a shared library
 with a plain C interface under ``_build/``, and loaded with ``ctypes``.
 ``LAUNCHES`` counts the kernel launches per wrapper, so a run can show that
-it went through them (K4 is two launches, a partial pass and a reduction,
-counted as one call).
+it went through them (K3 and K4 are two launches each, a partial pass and
+a reduction, counted as one call).
 """
 from __future__ import annotations
 
@@ -43,7 +45,9 @@ NVCC_FLAGS = (
 )
 
 # kernel launches per wrapper since the last reset_launch_counts()
-LAUNCHES = {"nn_select_batched": 0, "max_image": 0, "nn_select": 0}
+LAUNCHES = {
+    "nn_select_batched": 0, "max_image": 0, "nn_select": 0, "nearest_neighbors": 0,
+}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -114,6 +118,8 @@ def load_library() -> ctypes.CDLL:
             lib.scl_max_image.restype = i
             lib.scl_nn_select.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
             lib.scl_nn_select.restype = i
+            lib.scl_nearest_neighbors.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.scl_nearest_neighbors.restype = i
             lib.scl_cuda_error_string.argtypes = [i]
             lib.scl_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -418,3 +424,85 @@ def nn_select(query: torch.Tensor, payload: torch.Tensor):
     _check_launch(lib, rc, "nn_select")
     LAUNCHES["nn_select"] += 1
     return d2, sel
+
+
+# ---------------------------------------------------------------------------
+# K3: solo 1-NN (distance and index, argmin ties)
+# ---------------------------------------------------------------------------
+
+
+def nearest_neighbors_plain(
+    query: torch.Tensor, target: torch.Tensor, chunk: int | None = None
+):
+    """Plain PyTorch version of K3, written from the contract.
+
+    query [Nq, 3]; target [Nt, 3]. Returns (d2 [Nq] f32, index [Nq] int32):
+    d2 is the nearest target's ``((dx*dx) + (dy*dy)) + (dz*dz)`` in f32, in
+    exactly that order (bit-equal to the kernel's), clamped at 0; index is
+    the lowest target index at exactly that d2. A query that no target
+    beats (no target, or only NaN distances) gives (inf, 0). The target
+    axis is walked in chunks as in :func:`nn_select_plain`.
+    """
+    nq, nt = query.shape[0], target.shape[0]
+    if chunk is None:
+        chunk = max(1, min(nt, (1 << 24) // max(1, nq)))
+    dtype, dev = query.dtype, query.device
+    best = torch.full((nq,), float("inf"), dtype=dtype, device=dev)
+    arg = torch.zeros((nq,), dtype=torch.int64, device=dev)
+    qx, qy, qz = (query[:, c, None] for c in range(3))       # [Nq, 1]
+    for c0 in range(0, nt, chunk):
+        t = target[c0 : c0 + chunk]                            # [C, 3]
+        dx = qx - t[None, :, 0]
+        dy = qy - t[None, :, 1]
+        dz = qz - t[None, :, 2]
+        d2 = dx * dx
+        d2 = d2 + dy * dy
+        d2 = d2 + dz * dz                                      # [Nq, C]
+        d2 = torch.where(torch.isnan(d2), float("inf"), d2)
+        cmin, carg = torch.min(d2, dim=-1)   # first minimum on ties
+        take = cmin < best
+        best = torch.where(take, cmin, best)
+        arg = torch.where(take, carg + c0, arg)
+    found = torch.isfinite(best)
+    d2 = torch.where(found, torch.clamp(best, min=0.0), float("inf"))
+    return d2, torch.where(found, arg, 0).to(torch.int32)
+
+
+def nearest_neighbors(query: torch.Tensor, target: torch.Tensor):
+    """K3 (see ``csrc/nn_select.cu``): 1-NN of query [Nq, 3] among target
+    [Nt, 3], lowest index on exact ties. Returns (d2 [Nq] f32, index [Nq]
+    int32)."""
+    _require(query.dim() == 2 and query.shape[1] == 3,
+             f"query must be [Nq, 3], got {tuple(query.shape)}")
+    _require(target.dim() == 2 and target.shape[1] == 3,
+             f"target must be [Nt, 3], got {tuple(target.shape)}")
+    _require(query.dtype == target.dtype == torch.float32,
+             "query and target must be float32")
+    _require(query.device == target.device, "query and target must share a device")
+    if query.device.type == "cpu":
+        return nearest_neighbors_plain(query, target)
+    _require(query.device.type == "cuda", f"unsupported device {query.device}")
+    _require(query.is_contiguous() and target.is_contiguous(),
+             "query and target must be contiguous")
+    nq, nt = query.shape[0], target.shape[0]
+    _require(3 * max(nq, nt) < 2**31, "sizes out of range")
+    dev = query.device
+    if nq == 0 or nt == 0:
+        return (
+            torch.full((nq,), float("inf"), dtype=torch.float32, device=dev),
+            torch.zeros((nq,), dtype=torch.int32, device=dev),
+        )
+    d2 = torch.empty((nq,), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
+    chunk, chunks = _k4_chunking(nq, nt)
+    part_d = torch.empty((chunks, nq), dtype=torch.float32, device=dev)
+    part_i = torch.empty((chunks, nq), dtype=torch.int32, device=dev)
+    lib = load_library()
+    rc = lib.scl_nearest_neighbors(
+        query.data_ptr(), target.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
+        d2.data_ptr(), idx.data_ptr(), nq, nt, chunk, chunks, dev.index or 0,
+        _stream(dev),
+    )
+    _check_launch(lib, rc, "nearest_neighbors")
+    LAUNCHES["nearest_neighbors"] += 1
+    return d2, idx

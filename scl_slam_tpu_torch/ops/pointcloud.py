@@ -3,9 +3,9 @@
 
 Clouds are fixed-capacity ``[..., N, 3]`` tensors with a validity mask;
 every function here takes leading batch dimensions, which replaces the JAX
-package's ``vmap`` over frames. The voxel downsamplers (``voxel_downsample``,
-``voxel_downsample_hash``) and ``estimate_normals`` are not ported yet
-(ROADMAP queue 1).
+package's ``vmap`` over frames, except ``voxel_downsample`` (one cloud; the
+global map's final downsample). ``voxel_downsample_hash`` and
+``estimate_normals`` are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -56,6 +56,64 @@ def transform(cloud: Cloud, R: torch.Tensor, t: torch.Tensor) -> Cloud:
     xyz = torch.einsum("...ij,...nj->...ni", R, cloud.xyz) + t[..., None, :]
     xyz = torch.where(cloud.mask[..., None], xyz, PAD_VALUE)
     return Cloud(xyz, cloud.mask)
+
+
+def voxel_downsample(cloud: Cloud, leaf: float, out_capacity: int | None = None) -> Cloud:
+    """Voxel-grid downsample of one cloud [N, 3], keeping per voxel the
+    point closest to the voxel's center (lowest index on ties). Voxels are
+    grouped exactly by a packed int32 key (11+11+8 bits around the masked
+    mean, quantized to the leaf grid; points outside that range count as
+    invalid). Representatives are ordered by a hash of their voxel
+    coordinates, so a truncation to ``out_capacity`` keeps a spatially
+    uniform subset. The same algorithm as the JAX function."""
+    xyz, mask = cloud.xyz, cloud.mask
+    n = xyz.shape[0]
+    out_capacity = out_capacity or n
+    dev = xyz.device
+    inv_leaf = 1.0 / leaf
+    w = mask.to(xyz.dtype)
+    mean = torch.sum(xyz * w[:, None], dim=0) / torch.clamp(w.sum(), min=1.0)
+    origin = torch.floor(mean * inv_leaf) * leaf
+    vox = torch.floor((xyz - origin) * inv_leaf).to(torch.int32)
+    valid = (
+        mask
+        & (vox[:, 0].abs() < 1024) & (vox[:, 1].abs() < 1024) & (vox[:, 2].abs() < 128)
+    )
+    packed = (vox[:, 0] + 1024) * (2048 * 256) + (vox[:, 1] + 1024) * 256 + (vox[:, 2] + 128)
+    big = 2**30
+    packed = torch.where(valid, packed, big)
+    xyz = torch.where(valid[:, None], xyz, PAD_VALUE)
+    vox = torch.where(valid[:, None], vox, big)
+
+    # exact grouping: one sort, consecutive-difference group ids
+    order = torch.argsort(packed, stable=True)
+    sv = packed[order]
+    new_group = sv != torch.roll(sv, 1)
+    new_group[:1] = True
+    gid = torch.empty(n, dtype=torch.int64, device=dev)
+    gid[order] = torch.cumsum(new_group, 0) - 1
+
+    center = (vox.to(xyz.dtype) + 0.5) * leaf + origin
+    d2 = torch.sum((xyz - center) ** 2, dim=-1)
+    d2 = torch.where(valid, d2, float("inf"))
+    min_d2 = torch.full((n,), float("inf"), dtype=xyz.dtype, device=dev).scatter_reduce(
+        0, gid, d2, "amin"
+    )
+    idxs = torch.arange(n, device=dev)
+    is_rep = (d2 <= min_d2[gid]) & valid
+    first_idx = torch.full((n,), n, dtype=torch.int64, device=dev).scatter_reduce(
+        0, gid, torch.where(is_rep, idxs, n), "amin"
+    )
+    is_rep = is_rep & (idxs == first_idx[gid])
+
+    # representatives first, in voxel-hash order (the JAX int32 products
+    # wrap; the low 32 bits of the int64 products are the same bits)
+    v64 = vox.to(torch.int64)
+    h = ((v64[:, 0] * 73856093) ^ (v64[:, 1] * 19349663) ^ (v64[:, 2] * 83492791)) & 0xFFFFFFFF
+    sort_key = torch.where(is_rep, h >> 1, 2**31 - 1)
+    take = torch.argsort(sort_key, stable=True)[:out_capacity]
+    new_mask = is_rep[take]
+    return Cloud(torch.where(new_mask[:, None], xyz[take], PAD_VALUE), new_mask)
 
 
 def stride_permute_downsample(cloud: Cloud, out_capacity: int) -> Cloud:

@@ -1,4 +1,5 @@
-"""Point-to-point ICP for loop verification (port of the replay and live
+"""Geometric verification: point-to-point ICP for intra-robot loops and
+RANSAC for inter-robot loops (port of the replay, live and inter-robot
 paths' part of ``scl_slam_tpu/ops/registration.py``).
 
 Ported: ``kabsch``; the solo path ``nearest_select`` (kernel K4 on CUDA
@@ -9,9 +10,15 @@ keep the coarse stage, the optional target-stride stage, the stall and
 hopeless exits and ``reuse_final_fitness``. The JAX ``lax.while_loop`` is
 a host loop that reads the done flag(s) once per iteration. The solo path
 does not go through K1: K1 averages the payload over exact ties, the solo
-contract takes the lowest index. ``nearest_neighbors`` (K3), point-to-plane
-ICP, RANSAC and the fused-moments path are not ported yet (ROADMAP queues 1
-and 2).
+contract takes the lowest index.
+
+Inter-robot: ``nearest_neighbors`` (kernel K3 on CUDA tensors),
+``rigid_from_triangles``, ``triangles_ok`` and ``ransac_align``. RANSAC
+draws its minimal samples from a counter-based integer hash of (seed,
+attempt, hypothesis, point) instead of ``jax.random``: the same draws on
+the CPU and on the card, and a test can inject JAX's own samples.
+Point-to-plane ICP, ``ransac_align_batched`` (the fleet) and the
+fused-moments path are not ported yet (ROADMAP queues 1 and 2).
 """
 from __future__ import annotations
 
@@ -54,6 +61,50 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor) -> se3.P
     R = torch.einsum("...ji,...j,...kj->...ik", Vt, D, U)  # V diag(D) U^T
     t = mu_d - torch.einsum("...ij,...j->...i", R, mu_s)
     return se3.Pose(R, t)
+
+
+def rigid_from_triangles(src: torch.Tensor, dst: torch.Tensor) -> se3.Pose:
+    """Closed-form rigid transform from 3-point correspondences: an
+    orthonormal frame on each triangle (edge, in-plane normal component,
+    plane normal), R = F_dst F_src^T, t from the centroids. src/dst
+    [..., 3, 3] (three points x xyz). Degenerate triples give finite but
+    non-orthonormal frames: callers gate them with :func:`triangles_ok`
+    (see the JAX function for why)."""
+    eps = 1e-12
+
+    def frame(p):
+        u = p[..., 1, :] - p[..., 0, :]
+        v = p[..., 2, :] - p[..., 0, :]
+        e1 = u / (torch.linalg.norm(u, dim=-1, keepdim=True) + eps)
+        w = torch.linalg.cross(e1, v, dim=-1)
+        e3 = w / (torch.linalg.norm(w, dim=-1, keepdim=True) + eps)
+        e2 = torch.linalg.cross(e3, e1, dim=-1)
+        return torch.stack([e1, e2, e3], dim=-1)           # columns
+
+    R = frame(dst) @ frame(src).transpose(-1, -2)
+    cs = src.mean(dim=-2)
+    cd = dst.mean(dim=-2)
+    t = cd - torch.einsum("...ij,...j->...i", R, cs)
+    return se3.Pose(R, t)
+
+
+def triangles_ok(p: torch.Tensor, min_sin: float = 1e-2) -> torch.Tensor:
+    """Validity of 3-point minimal samples p [..., 3, 3]: non-collinear and
+    distinct (|u x v| > min_sin |u||v|, with |u|, |v| > 1e-6)."""
+    u = p[..., 1, :] - p[..., 0, :]
+    v = p[..., 2, :] - p[..., 0, :]
+    nu = torch.linalg.norm(u, dim=-1)
+    nv = torch.linalg.norm(v, dim=-1)
+    area = torch.linalg.norm(torch.linalg.cross(u, v, dim=-1), dim=-1)
+    return (nu > 1e-6) & (nv > 1e-6) & (area > min_sin * nu * nv)
+
+
+def nearest_neighbors(query: torch.Tensor, target: torch.Tensor):
+    """Brute-force 1-NN of each query point [Nq, 3] in target [Nt, 3]
+    (invalid points at PAD_VALUE). Returns (sq_dist [Nq], index [Nq]
+    int32), the lowest index winning exact ties. Kernel K3 on CUDA tensors
+    at any shape; its plain version on CPU tensors."""
+    return kernels.nearest_neighbors(query.contiguous(), target.contiguous())
 
 
 def nearest_select(query: torch.Tensor, payload: torch.Tensor):
@@ -308,3 +359,141 @@ def icp_batched(
         )
     inlier_frac = n_good / torch.clamp(smask.sum(dim=-1), min=1)
     return ICPResult(pose, fitness, inlier_frac, (delta < tol) & active)
+
+
+class RansacResult(NamedTuple):
+    pose: se3.Pose
+    inlier_ratio: torch.Tensor
+    num_inliers: torch.Tensor
+    success: torch.Tensor
+
+
+_M32 = 0xFFFFFFFF
+_HASH_MUL = 0x45D9F3B  # < 2**27, so a product with a 32-bit value fits int64
+
+
+def _hash32(x):
+    """A 32-bit integer mixing hash on int64 tensors or Python ints holding
+    values in [0, 2**32): shifts, xors and products below 2**63, so torch's
+    integer ops give the same bits on every device."""
+    x = x ^ (x >> 16)
+    x = (x * _HASH_MUL) & _M32
+    x = x ^ (x >> 16)
+    x = (x * _HASH_MUL) & _M32
+    return x ^ (x >> 16)
+
+
+def ransac_samples(
+    valid: torch.Tensor, num_hypotheses: int, sample_size: int, seed: int,
+    attempt: int,
+) -> torch.Tensor:
+    """[H, sample_size] indices of minimal samples among the ``valid`` [N]
+    correspondences, without replacement within a hypothesis.
+
+    Each (hypothesis, point) gets a 32-bit hash of (seed, attempt, h, n) as
+    its priority; a hypothesis takes the ``sample_size`` valid points of
+    highest priority (point index breaks priority ties, so the keys are
+    distinct and the choice is the same on every device). Top-k of i.i.d.
+    uniform priorities is a uniform sample without replacement, as the JAX
+    package's gumbel top-k is. With fewer valid points than
+    ``sample_size`` the rest are invalid ones (the hypothesis then fails
+    :func:`triangles_ok` or scores on invalid points only).
+    """
+    n = valid.shape[0]
+    if n >= 1 << 20:
+        raise ValueError(f"ransac_samples supports fewer than 2**20 points, got {n}")
+    base = _hash32((_hash32(seed & _M32) ^ (attempt & _M32)) & _M32)
+    dev = valid.device
+    pts = torch.arange(n, dtype=torch.int64, device=dev)
+    ctr = torch.arange(num_hypotheses, dtype=torch.int64, device=dev)[:, None] * n + pts
+    prio = _hash32(_hash32(ctr & _M32) ^ base)               # [H, N] in [0, 2**32)
+    key = torch.where(valid[None, :], prio * (1 << 20) + pts, pts - (1 << 20))
+    return torch.topk(key, sample_size, dim=-1).indices
+
+
+def _transform_each(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor):
+    """pts [N, 3] under each of H poses (R [H, 3, 3], t [H, 3]) -> [H, N, 3],
+    per coordinate in a fixed order (separate elementwise ops round alike
+    on every device, where a matmul's summation order is the library's)."""
+    x, y, z = (pts[None, :, None, c] for c in range(3))     # [1, N, 1]
+    Rc = [R[:, None, :, c] for c in range(3)]                # [H, 1, 3]
+    return ((Rc[0] * x + Rc[1] * y) + Rc[2] * z) + t[:, None, :]
+
+
+def _sq_norm3(d: torch.Tensor) -> torch.Tensor:
+    """((dx*dx) + (dy*dy)) + (dz*dz) over the last axis, in that order."""
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+
+
+def ransac_align(
+    source: Cloud,
+    target: Cloud,
+    seed: int,
+    attempt: int,
+    num_hypotheses: int = 256,
+    inlier_thresh: float = 0.25,
+    min_inlier_ratio: float = 0.45,
+    refine: bool = True,
+    samples: torch.Tensor | None = None,
+) -> RansacResult:
+    """RANSAC rigid alignment over nearest-neighbor correspondences (the
+    inter-robot verification; see the JAX function for the reference
+    mapping): 1-NN correspondences (kernel K3 on CUDA tensors),
+    ``num_hypotheses`` 3-point fits (:func:`rigid_from_triangles`, the
+    JAX function's default ``sample_size``; its Kabsch branch for larger
+    samples is not carried) scored as one batch by inlier count, the best
+    refined by one weighted Kabsch over its inliers. Accept iff the inlier
+    ratio >= ``min_inlier_ratio``.
+
+    The minimal samples come from :func:`ransac_samples` with (``seed``,
+    ``attempt``), unless ``samples`` [H, 3] is given (a test passes the
+    indices JAX's gumbel top-k drew).
+    """
+    dtype = source.xyz.dtype
+    tgt = torch.where(target.mask[:, None], target.xyz, PAD_VALUE)
+    _, idx = nearest_neighbors(source.xyz, tgt)
+    idx = idx.long()
+    corr_valid = source.mask & target.mask[idx]
+    matched = tgt[idx]                                        # [N, 3]
+    if samples is None:
+        samples = ransac_samples(corr_valid, num_hypotheses, 3, seed, attempt)
+    samples = samples.long()
+
+    src_s = source.xyz[samples]                               # [H, 3, 3]
+    dst_s = matched[samples]
+    hyp = rigid_from_triangles(src_s, dst_s)
+    # both triangles must determine a rigid map (see the JAX function)
+    hyp_ok = triangles_ok(src_s) & triangles_ok(dst_s)
+
+    thr2 = inlier_thresh * inlier_thresh
+    moved = _transform_each(hyp.R, hyp.t, source.xyz)        # [H, N, 3]
+    res2 = _sq_norm3(moved - matched[None])                   # [H, N]
+    inl = (res2 < thr2) & corr_valid[None, :]
+    counts = torch.where(hyp_ok, inl.sum(dim=-1), -1)
+    best = torch.argmax(counts)                               # first maximum
+    any_valid = counts[best] >= 0
+    eye3 = torch.eye(3, dtype=dtype, device=dst_s.device)
+    best_pose = se3.Pose(
+        torch.where(any_valid, hyp.R[best], eye3),
+        torch.where(any_valid, hyp.t[best], torch.zeros_like(hyp.t[best])),
+    )
+    best_inl = inl[best] & any_valid
+
+    if refine:
+        w = best_inl.to(dtype)
+        refined = kabsch(source.xyz, matched, torch.clamp(w, min=1e-12))
+        moved_r = _transform_each(refined.R[None], refined.t[None], source.xyz)[0]
+        inl_r = (_sq_norm3(moved_r - matched) < thr2) & corr_valid
+        # no valid hypothesis: keep the identity and the empty inlier set
+        # (the JAX function explains why the refine must not be adopted)
+        use_refined = any_valid & (inl_r.sum() >= best_inl.sum())
+        best_pose = se3.Pose(
+            torch.where(use_refined, refined.R, best_pose.R),
+            torch.where(use_refined, refined.t, best_pose.t),
+        )
+        best_inl = torch.where(use_refined, inl_r, best_inl)
+
+    num_inliers = best_inl.sum()
+    n_corr = torch.clamp(corr_valid.sum(), min=1)
+    ratio = num_inliers / n_corr
+    return RansacResult(best_pose, ratio, num_inliers, ratio >= min_inlier_ratio)

@@ -21,14 +21,26 @@ exclusive-cumsum queue append. ``Mapper.replay`` runs whole chunks of
 batches through ``_replay_batches`` (a Python loop where JAX scans) and
 hands the remainder to ``Mapper.add_frames``.
 
+Inter-robot, per keyframe of each robot (``Mapper.broadcast_latest``,
+``Mapper.detect_inter_loop``, ``Mapper.serve_verification``): the new
+keyframe's descriptor goes to every peer over a bus (``transport.py``),
+where ``_ingest_peer`` chains the peer's pose and stores the descriptor;
+``_detect_inter`` queries the peers' descriptors for the latest own
+keyframe and, on a hit, the robot that owns the match verifies it by RPC:
+``_verify_ransac`` gathers its submap around the match and runs RANSAC +
+SVD (kernel K3 for the 1-NN) against the requester's map-frame cloud. A
+verified factor joins both robots' loop queues (``_queue_loop``).
+
 The state is updated in place (the JAX steps donate their state). What is
 not ported yet raises ``NotImplementedError`` naming the ROADMAP item it
-waits for: eviction, peers and the inter-robot path, PCM, the mesh solve,
-the voxel storage modes, the C++ host-descriptor path and int16 transfer.
+waits for: eviction, checkpoints, PCM, the mesh solve, the voxel storage
+modes, the C++ host-descriptor path and int16 transfer.
 """
 from __future__ import annotations
 
+import functools
 import os
+import threading
 import time
 
 import numpy as np
@@ -599,16 +611,188 @@ def _replay_batches(
     return state, torch.cat(oks), torch.cat(idxs), torch.cat(fits)
 
 
+def _ingest_peer(
+    state: MapperState, robot: int, index: int, pre_pose: se3.Pose,
+    cur_pose: se3.Pose, wire: torch.Tensor, stamp, cfg: SlamConfig,
+):
+    """Peer descriptor ingestion, in place: extend the peer's pose chain by
+    a between factor (prePose -> curPose), or hold its first pose by the
+    weak prior (the reference adds none for peers; the prior keeps the
+    joint solve well-posed before any inter-robot loop), and store the wire
+    descriptor. ``index`` is the peer's protocol keyframe index; the slot
+    is the next free position of its block. No cloud is stored: clouds
+    move only in verification RPCs. The caller has checked capacity."""
+    K = cfg.keyframe.max_keyframes
+    pos = int(state.counts[robot])
+    slot = robot * K + pos
+    first = pos == 0
+    g = state.graph
+    if first:
+        F.add_prior(g, slot, cur_pose, [1.0 / s for s in cfg.optimizer.prior_sigmas])
+    else:
+        F.add_between(
+            g, slot - 1, slot, se3.between(pre_pose, cur_pose),
+            [1.0 / s for s in cfg.optimizer.odometry_sigmas],
+        )
+    fam = registry.get_family(cfg)
+    fam.insert(state.desc_db, fam.from_wire(wire), robot, index, slot)
+
+    prev_slot = max(slot - 1, robot * K)
+    prev_opt = se3.Pose(state.opt_R[prev_slot], state.opt_t[prev_slot])
+    prev_odom = se3.Pose(state.odom_R[prev_slot], state.odom_t[prev_slot])
+    opt = cur_pose if first else se3.compose(prev_opt, se3.between(prev_odom, cur_pose))
+    state.odom_R[slot] = cur_pose.R
+    state.odom_t[slot] = cur_pose.t
+    state.opt_R[slot] = opt.R
+    state.opt_t[slot] = opt.t
+    state.stamps[slot] = stamp
+    state.counts[robot] += 1
+    return state
+
+
+def _detect_inter(state: MapperState, robot: int, cfg: SlamConfig):
+    """Inter-robot candidate for the latest own keyframe: an 'inter' query
+    of the DB. Returns (found 0-d, match with 0-d fields, the keyframe's
+    cloud in the map frame [P, 3], its mask [P]): the payload of the
+    verification RPC."""
+    K = cfg.keyframe.max_keyframes
+    fam = registry.get_family(cfg)
+    pos = int(state.counts[robot]) - 1
+    slot = robot * K + max(pos, 0)
+    slots = torch.tensor([slot], device=state.kf_xyz.device)
+    q_idx = state.desc_db.index[slots]
+    match = fam.query(state.desc_db, fam.from_db(state.desc_db, slots), robot, q_idx, "inter")
+    match = base.Match(*(f[0] for f in match))
+    found = match.found & ~(state.loop_target[slot] >= 0)
+    P = cfg.keyframe.points_per_keyframe
+    cloud = pc.Cloud(state.kf_xyz[slot].reshape(P, 3), state.kf_mask[slot])
+    world = pc.transform(cloud, state.opt_R[slot], state.opt_t[slot])
+    return found, match, world.xyz, world.mask
+
+
+def _verify_inputs(state: MapperState, robot_pre: int, index_pre: int, cfg: SlamConfig):
+    """What verification reads of the state: (resident 0-d, the submap
+    around (robot_pre, index_pre) as a Cloud, that keyframe's optimized
+    pose), all fresh tensors. A frame evicted since the requester's
+    retrieval is not resident, and the verification then fails."""
+    enc = torch.tensor([encode_kf(robot_pre, index_pre)], dtype=torch.int32,
+                       device=state.kf_xyz.device)
+    pre_slots, _ = _resolve_indices(state, enc)
+    resident = pre_slots[0] >= 0
+    pre_slot = torch.clamp(pre_slots[:1], min=0)
+    submap = _gather_submap(state, pre_slot, robot_pre, cfg, state.counts[robot_pre].reshape(1))
+    pre_pose = se3.Pose(state.opt_R[pre_slot[0]].clone(), state.opt_t[pre_slot[0]].clone())
+    return resident, pc.Cloud(submap.xyz[0], submap.mask[0]), pre_pose
+
+
+def _verify_align(
+    inputs, cloud_xyz, cloud_mask, cur_pose_est: se3.Pose, cfg: SlamConfig,
+    seed: int, attempt: int, samples=None,
+):
+    """RANSAC + SVD of the requester's map-frame cloud against the gathered
+    submap (:func:`_verify_inputs`). Returns (success, z = T_pre^-1 *
+    T_cur_corrected, inlier_ratio)."""
+    resident, submap, pre_pose = inputs
+    res = reg.ransac_align(
+        pc.Cloud(cloud_xyz, cloud_mask), submap, seed, attempt,
+        num_hypotheses=cfg.loop.ransac_max_iter,
+        inlier_thresh=cfg.loop.ransac_outlier_threshold,
+        min_inlier_ratio=cfg.loop.ransac_inlier_ratio,
+        samples=samples,
+    )
+    # the alignment composed onto the estimate that made the cloud
+    corrected = se3.compose(res.pose, cur_pose_est)
+    z = se3.between(pre_pose, corrected)
+    return res.success & resident, z, res.inlier_ratio
+
+
+def _verify_ransac(
+    state: MapperState, cloud_xyz, cloud_mask, cur_pose_est: se3.Pose,
+    robot_pre: int, index_pre: int, cfg: SlamConfig, seed: int, attempt: int,
+    samples=None,
+):
+    """Server side of geometric verification: :func:`_verify_inputs` then
+    :func:`_verify_align`. ``cur_pose_est`` is the requester's own estimate
+    that put the cloud in its map frame (carried in the request). RANSAC
+    draws with (``seed``, ``attempt``) unless ``samples`` is given."""
+    inputs = _verify_inputs(state, robot_pre, index_pre, cfg)
+    return _verify_align(inputs, cloud_xyz, cloud_mask, cur_pose_est, cfg, seed, attempt, samples)
+
+
+def _queue_loop(
+    state: MapperState, i_enc: int, j_enc: int, z: se3.Pose, noise: float,
+    cfg: SlamConfig,
+):
+    """Append a verified loop factor in place, in canonical order (lower
+    (robot, index) first; z inverted when swapped). Endpoints are
+    ``encode_kf`` values, resolved to slots at drain time; a full queue
+    drops the factor. The dedup marker is set only when both endpoints are
+    resident here."""
+    swap = i_enc > j_enc
+    a, b = (j_enc, i_enc) if swap else (i_enc, j_enc)
+    zc = se3.inverse(z) if swap else z
+    q = state.loop_queue
+    cnt = int(q.count)
+    qok = cnt < q.i.shape[0]
+    if qok:
+        q.i[cnt] = a
+        q.j[cnt] = b
+        q.z_R[cnt] = zc.R
+        q.z_t[cnt] = zc.t
+        q.noise[cnt] = noise
+        q.count.add_(1)
+        enc = torch.tensor([a, b], dtype=torch.int32, device=q.i.device)
+        slots, _ = _resolve_indices(state, enc)
+        mark = (slots[0] >= 0) & (slots[1] >= 0)
+        b_slot = torch.clamp(slots[1], min=0)
+        state.loop_target[b_slot] = torch.where(mark, slots[0], state.loop_target[b_slot])
+    return state._replace(loop_closed=state.loop_closed | qok)
+
+
+def _gather_global_map(state: MapperState, per: int):
+    """A ``per``-point prefix of every keyframe slot in the map frame
+    (empty slots masked by the DB's occupancy). Returns ([S, per, 3],
+    [S, per])."""
+    xyz = state.kf_xyz[:, : per * 3].reshape(-1, per, 3)
+    occupied = state.desc_db.index >= 0
+    mask = state.kf_mask[:, :per] & occupied[:, None]
+    return se3.transform_points(se3.Pose(state.opt_R, state.opt_t), xyz), mask
+
+
+def _locked(method):
+    """Serialize a Mapper entry point on the instance's state lock (bus
+    threads call into the same object; see ``Mapper.__init__``)."""
+
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with self._state_lock:
+            return method(self, *args, **kwargs)
+
+    return wrapper
+
+
 class Mapper:
     """Host-side shell for one robot's SLAM session on ``device``.
 
     Holds a :class:`MapperState` and applies the transitions above: the
     live path (:meth:`add_frame`, :meth:`spin_once`, :meth:`optimize`), the
-    replay path (:meth:`add_frames`, :meth:`replay`) and the exports. The
-    entry point runs on the card: ``device`` defaults to ``"cuda"`` and
+    replay path (:meth:`add_frames`, :meth:`replay`), the inter-robot path
+    over a bus (:meth:`attach_bus`, :meth:`broadcast_latest`,
+    :meth:`detect_inter_loop`, :meth:`serve_verification`) and the exports.
+    The entry point runs on the card: ``device`` defaults to ``"cuda"`` and
     the constructor raises where there is none, unless the caller asks for
-    ``device="cpu"`` (where every kernel takes its plain version). Peers,
-    the inter-robot path and eviction are not ported yet (ROADMAP queue 1).
+    ``device="cpu"`` (where every kernel takes its plain version). Eviction
+    and checkpoints are not ported yet (ROADMAP queue 1).
+
+    Threads: with a socket bus, peer descriptors arrive and verification
+    requests are served on the bus's threads. Every state-changing entry
+    point holds ``_state_lock`` (as in the JAX package). The state is
+    changed in place here, so each transition that writes it also holds
+    ``_write_lock``, which is never held across an RPC;
+    :meth:`serve_verification` takes only ``_write_lock``, and only while it
+    gathers the submap. So a serve never reads a half-written state, and a
+    robot blocked in its own verification RPC (holding its ``_state_lock``)
+    can still serve a peer: no cross-robot lock cycle.
     """
 
     def __init__(self, cfg: SlamConfig, device="cuda"):
@@ -627,6 +811,19 @@ class Mapper:
         self._pending_intra = None
         self._pending_intra_valid = False
         self.icp_attempts = 0  # live-path ICP verifications run so far
+        self._state_lock = threading.RLock()
+        self._write_lock = threading.Lock()
+        # factors verified for peers on the bus thread, queued into the
+        # state by the next locked entry point (_drain_server_loops)
+        self._pending_server_loops: list[tuple] = []
+        self._pending_loops_lock = threading.Lock()
+        self._bus = None
+        # RANSAC draws: the JAX seed (robot_id + 1) and a serve counter
+        self._verify_seed = cfg.robot_id + 1
+        self._verify_attempts = 0
+        # the inter query's inputs changed since its last dispatch: a new
+        # own keyframe, a peer descriptor, or a verification that failed
+        self._inter_dirty = False
 
     # -- keyframe gate (reference saveFrame, distributedMapping.h:755-780) --
     def should_add_keyframe(self, pose) -> bool:
@@ -690,6 +887,7 @@ class Mapper:
         self._pending_intra_valid = bool(loops)
         return loops
 
+    @_locked
     def add_frames(self, poses, scans, stamps=None, apply_gate: bool = True) -> dict:
         """Macro-batched ingestion of many odometry frames as ONE batch
         (the keyframe gate runs host-side per frame; ``apply_gate=False``
@@ -705,10 +903,12 @@ class Mapper:
         self._ensure_capacity(len(sel))
         self._ensure_queue_headroom(len(sel))
         pose_b, xyz, mask, st = self._stage(poses, scans, stamps, sel)
-        self.state, oks, idxs, fits = _batch_body(
-            self.state, self.robot, pose_b, xyz, mask, st, self.cfg
-        )
+        with self._write_lock:
+            self.state, oks, idxs, fits = _batch_body(
+                self.state, self.robot, pose_b, xyz, mask, st, self.cfg
+            )
         loops = self._record(oks, idxs, fits)
+        self._inter_dirty = True
         return {"accepted": accepted, "loops": loops, "keyframes": self._keyframes}
 
     def _ensure_queue_headroom(self, k: int) -> None:
@@ -718,18 +918,20 @@ class Mapper:
         if int(self.state.loop_queue.count) + k > self.cfg.loop.queue_capacity:
             self.optimize()
 
-    def _ensure_capacity(self, k: int) -> None:
+    def _ensure_capacity(self, k: int, robot: int | None = None) -> None:
         """The JAX mapper evicts keyframes until ``k`` more fit the
-        robot's block; eviction is not ported yet."""
+        robot's block (own by default); eviction is not ported yet."""
+        robot = self.robot if robot is None else robot
         K = self.cfg.keyframe.max_keyframes
         if k > K:
             raise ValueError(f"batch of {k} keyframes exceeds capacity {K}")
-        if int(self.state.counts[self.robot]) + k > K:
+        if int(self.state.counts[robot]) + k > K:
             raise NotImplementedError(
                 "the keyframe block is full and needs eviction "
                 "(ROADMAP queue 1 item 9: eviction)"
             )
 
+    @_locked
     def replay(
         self,
         poses,
@@ -773,16 +975,18 @@ class Mapper:
             self._ensure_capacity(chunk)
             self._ensure_queue_headroom(chunk)
             pose_b, xyz, mask, st = self._stage(poses, scans, stamps, idx)
-            self.state, oks, idxs, fits = _replay_batches(
-                self.state,
-                self.robot,
-                se3.Pose(pose_b.R.reshape(R, B, 3, 3), pose_b.t.reshape(R, B, 3)),
-                xyz.reshape(R, B, *xyz.shape[1:]),
-                mask.reshape(R, B, -1),
-                st.reshape(R, B),
-                self.cfg,
-            )
+            with self._write_lock:
+                self.state, oks, idxs, fits = _replay_batches(
+                    self.state,
+                    self.robot,
+                    se3.Pose(pose_b.R.reshape(R, B, 3, 3), pose_b.t.reshape(R, B, 3)),
+                    xyz.reshape(R, B, *xyz.shape[1:]),
+                    mask.reshape(R, B, -1),
+                    st.reshape(R, B),
+                    self.cfg,
+                )
             loops.extend(self._record(oks, idxs, fits))
+            self._inter_dirty = True
             pos += chunk
         if pos < len(sel):
             rem = sel[pos:]
@@ -796,6 +1000,7 @@ class Mapper:
         return {"accepted": accepted, "loops": loops, "keyframes": self._keyframes}
 
     # -- the live path --
+    @_locked
     def add_frame(self, pose, xyz, stamp: float = 0.0) -> np.ndarray | None:
         """Process one odometry frame (``pose`` with ``.R`` [3, 3] / ``.t``
         [3], tensors or arrays; ``xyz`` [N, 3]). Returns the wire descriptor
@@ -817,7 +1022,8 @@ class Mapper:
             and self._keyframes + 1 > registry.exclude_recent(self.cfg) + 1
         )
         if detection_due:
-            self.state, wire, ok, match, fitness, attempt = _ingest_and_detect(*args)
+            with self._write_lock:
+                self.state, wire, ok, match, fitness, attempt = _ingest_and_detect(*args)
             self.icp_attempts += int(attempt)
             self._pending_intra = (
                 {
@@ -831,12 +1037,15 @@ class Mapper:
             )
             self._pending_intra_valid = True
         else:
-            self.state, wire = _ingest(*args)
+            with self._write_lock:
+                self.state, wire = _ingest(*args)
             self._pending_intra = None
             self._pending_intra_valid = False
         self._keyframes += 1
+        self._inter_dirty = True
         return to_numpy(wire)
 
+    @_locked
     def detect_intra_loop(self) -> dict | None:
         """Try closing a loop on the latest own keyframe (or hand over the
         result that :meth:`add_frame` already produced for it)."""
@@ -850,9 +1059,10 @@ class Mapper:
         # exclusion window
         if self._keyframes <= registry.exclude_recent(self.cfg) + 1:
             return None
-        self.state, ok, match, fitness, attempt = _detect_intra(
-            self.state, self.robot, self.cfg
-        )
+        with self._write_lock:
+            self.state, ok, match, fitness, attempt = _detect_intra(
+                self.state, self.robot, self.cfg
+            )
         self.icp_attempts += int(attempt)
         if bool(ok):
             return {
@@ -863,11 +1073,13 @@ class Mapper:
             }
         return None
 
+    @_locked
     def optimize(self) -> np.ndarray:
         """Drain the loop queue and run the pose-graph solve. Returns the
         chi2 history (zeros when no loop factor was added)."""
         self._drain_server_loops()
-        self.state, chi2_hist = _drain_queue_and_optimize(self.state, self.cfg)
+        with self._write_lock:
+            self.state, chi2_hist = _drain_queue_and_optimize(self.state, self.cfg)
         return to_numpy(chi2_hist)
 
     def attach_mesh(self, mesh, axis: str = "shard") -> None:
@@ -876,26 +1088,199 @@ class Mapper:
             "(ROADMAP queue 1 item 17: distributed)"
         )
 
-    def attach_bus(self, bus) -> None:
-        raise NotImplementedError(
-            "peers and the transport bus are not ported yet "
-            "(ROADMAP queue 1 item 13: inter-robot)"
+    # -- inter-robot loop closure --
+    def next_index(self, robot: int) -> int:
+        """Next protocol keyframe index in a robot's chain (tail index + 1)."""
+        K = self.cfg.keyframe.max_keyframes
+        n = int(self.state.counts[robot])
+        if n == 0:
+            return 0
+        return int(self.state.desc_db.index[robot * K + n - 1]) + 1
+
+    def _pose_in(self, T) -> se3.Pose:
+        """A [4, 4] wire pose as an f32 Pose on this mapper's device."""
+        T = np.asarray(T, np.float32)
+        return se3.Pose(
+            torch.from_numpy(T[:3, :3].copy()).to(self.device),
+            torch.from_numpy(T[:3, 3].copy()).to(self.device),
         )
 
+    def _pose_out(self, R, t) -> np.ndarray:
+        """A Pose's (R, t) as the wire's f64 [4, 4]."""
+        T = np.eye(4)
+        T[:3, :3] = to_numpy(R)
+        T[:3, 3] = to_numpy(t)
+        return T
+
+    @_locked
+    def ingest_peer_descriptor(
+        self, robot: int, index: int, pre_pose, cur_pose, wire, stamp: float = 0.0,
+    ) -> bool:
+        """In-order peer descriptor ingestion (poses with ``.R`` / ``.t``,
+        wire a flat float vector). Returns False when the descriptor is
+        dropped as out of order. A full block raises: eviction is not
+        ported yet."""
+        if index != self.next_index(robot):
+            return False
+        self._ensure_capacity(1, robot)
+        dev = self.device
+
+        def pose(p):
+            return se3.Pose(
+                torch.as_tensor(p.R, dtype=torch.float32).to(dev),
+                torch.as_tensor(p.t, dtype=torch.float32).to(dev),
+            )
+
+        values = torch.as_tensor(np.asarray(wire, np.float32)).to(dev)
+        with self._write_lock:
+            self.state = _ingest_peer(
+                self.state, robot, index, pose(pre_pose), pose(cur_pose), values,
+                float(stamp), self.cfg,
+            )
+        self._inter_dirty = True
+        return True
+
+    def attach_bus(self, bus) -> None:
+        """Wire this mapper to a transport bus (``LocalBus`` or ``TcpBus``
+        of ``runtime/transport.py``)."""
+        self._bus = bus
+        bus.register(self.robot, self._on_peer_descriptor, self.serve_verification)
+
+    def _on_peer_descriptor(self, msg) -> None:
+        self.ingest_peer_descriptor(
+            msg.robot, msg.index, self._pose_in(msg.pre_pose),
+            self._pose_in(msg.cur_pose), msg.values, msg.stamp,
+        )
+
+    @_locked
+    def broadcast_latest(self, wire: np.ndarray) -> None:
+        """Publish the latest own keyframe's descriptor to the peers, with
+        its odometry pose and the previous keyframe's (the pair a peer
+        chains by)."""
+        if self._bus is None:
+            return
+        from .transport import DescriptorMsg
+
+        K = self.cfg.keyframe.max_keyframes
+        pos = int(self.state.counts[self.robot]) - 1
+        slot = self.robot * K + pos
+        st = self.state
+        cur = self._pose_out(st.odom_R[slot], st.odom_t[slot])
+        pre = self._pose_out(st.odom_R[slot - 1], st.odom_t[slot - 1]) if pos > 0 else cur.copy()
+        msg = DescriptorMsg(
+            robot=self.robot, index=int(st.desc_db.index[slot]), pre_pose=pre,
+            cur_pose=cur, values=np.asarray(wire, np.float32),
+            stamp=float(st.stamps[slot]),
+        )
+        self._bus.broadcast_descriptor(self.robot, msg)
+
+    @_locked
     def detect_inter_loop(self) -> dict | None:
-        """Inter-robot detection needs a bus (:meth:`attach_bus`); with none
-        attached there is nothing to query, as in the JAX package."""
-        return None
+        """Query for a cross-robot loop on the latest own keyframe; on a hit,
+        ask the owning robot to verify it (RPC) and queue the factor.
+
+        Runs only when the query's inputs changed (a new own keyframe or a
+        peer descriptor), or after a verification that failed or could not
+        be made: RANSAC draws anew each time and the pose estimate moves,
+        so a failed candidate is retried on the next spin."""
+        if (
+            not self.cfg.loop.inter_enabled
+            or self._bus is None
+            or self.cfg.number_of_robots < 2
+            or self._keyframes < 1
+            or not self._inter_dirty
+        ):
+            return None
+        self._inter_dirty = False
+        found, match, cloud_xyz, cloud_mask = _detect_inter(self.state, self.robot, self.cfg)
+        if not bool(found):
+            return None
+        from .transport import _DECODE_ERRORS, VerifyRequest
+
+        robot_pre, index_pre = int(match.robot), int(match.index)
+        K = self.cfg.keyframe.max_keyframes
+        cur_slot = self.robot * K + int(self.state.counts[self.robot]) - 1
+        idx_cur = int(self.state.desc_db.index[cur_slot])
+        req = VerifyRequest(
+            robot_cur=self.robot, index_cur=idx_cur, robot_pre=robot_pre,
+            index_pre=index_pre, cloud_xyz=to_numpy(cloud_xyz),
+            cloud_mask=to_numpy(cloud_mask),
+            cur_pose_est=self._pose_out(self.state.opt_R[cur_slot], self.state.opt_t[cur_slot]),
+        )
+        try:
+            resp = self._bus.verify(robot_pre, req)
+        except (OSError, ConnectionError, EOFError, TimeoutError, *_DECODE_ERRORS):
+            # a peer down or a malformed reply: a missed verification, not
+            # an error; retried on the next spin
+            self._inter_dirty = True
+            return None
+        if not resp.success:
+            self._inter_dirty = True
+            return None
+        with self._write_lock:
+            self.state = _queue_loop(
+                self.state, encode_kf(robot_pre, index_pre), encode_kf(self.robot, idx_cur),
+                self._pose_in(resp.pose_between), max(1e-3, 1.0 - resp.inlier_ratio),
+                self.cfg,
+            )
+        return {
+            "robot": robot_pre,
+            "matched_index": index_pre,
+            "distance": float(match.distance),
+            "inlier_ratio": resp.inlier_ratio,
+        }
+
+    def serve_verification(self, req):
+        """Server side of the verification RPC (called on a bus thread).
+
+        Takes ``_write_lock`` only to gather what it reads of the state,
+        never ``_state_lock`` (see the class note). A verified factor joins
+        both robots' graphs: this one's copy is buffered and queued by the
+        next locked entry point (:meth:`_drain_server_loops`)."""
+        from .transport import VerifyResponse
+
+        with self._pending_loops_lock:
+            attempt = self._verify_attempts
+            self._verify_attempts += 1
+        dev = self.device
+        with self._write_lock:
+            inputs = _verify_inputs(self.state, req.robot_pre, req.index_pre, self.cfg)
+        success, z, ratio = _verify_align(
+            inputs,
+            torch.as_tensor(np.asarray(req.cloud_xyz, np.float32)).to(dev),
+            torch.as_tensor(np.asarray(req.cloud_mask, bool)).to(dev),
+            self._pose_in(req.cur_pose_est), self.cfg, self._verify_seed, attempt,
+        )
+        ratio = float(ratio)
+        if not bool(success):
+            return VerifyResponse(False, None, ratio)
+        T = self._pose_out(z.R, z.t)
+        with self._pending_loops_lock:
+            self._pending_server_loops.append((
+                encode_kf(req.robot_pre, req.index_pre),
+                encode_kf(req.robot_cur, req.index_cur), T, max(1e-3, 1.0 - ratio),
+            ))
+        return VerifyResponse(True, T, ratio)
 
     def _drain_server_loops(self) -> None:
-        """Factors verified for peers wait here in the JAX package; with no
-        bus there are none."""
+        """Queue the factors that :meth:`serve_verification` buffered. The
+        caller holds ``_state_lock`` (every call site is a locked entry
+        point)."""
+        if not self._pending_server_loops:
+            return
+        with self._pending_loops_lock:
+            pending, self._pending_server_loops = self._pending_server_loops, []
+        for a_enc, b_enc, T, noise in pending:
+            with self._write_lock:
+                self.state = _queue_loop(self.state, a_enc, b_enc, self._pose_in(T), noise, self.cfg)
 
+    @_locked
     def spin_once(self, now: float | None = None) -> dict:
-        """One loop-thread iteration: intra detection, then the drain and
-        solve when a loop closed and ``mapping_process_interval`` seconds
-        have passed since the last one (``now`` drives that throttle from a
-        simulated clock; default ``time.monotonic()``)."""
+        """One loop-thread iteration: intra detection, inter detection, then
+        the drain and solve when a loop closed and
+        ``mapping_process_interval`` seconds have passed since the last one
+        (``now`` drives that throttle from a simulated clock; default
+        ``time.monotonic()``)."""
         self._drain_server_loops()
         info = {"loop": self.detect_intra_loop()}
         inter = self.detect_inter_loop()
@@ -923,12 +1308,14 @@ class Mapper:
         return out
 
     def trajectory_with_stamps(self, robot: int | None = None):
-        """(poses [N, 4, 4], stamps [N]) from one state snapshot."""
-        st = self.state
+        """(poses [N, 4, 4], stamps [N]) from one state snapshot (read under
+        ``_write_lock``, so a bus-thread ingest cannot land between them)."""
         robot = self.robot if robot is None else robot
         K = self.cfg.keyframe.max_keyframes
-        n = int(st.counts[robot])
-        return self._traj_from(st, robot), to_numpy(st.stamps[robot * K : robot * K + n])
+        with self._write_lock:
+            st = self.state
+            n = int(st.counts[robot])
+            return self._traj_from(st, robot), to_numpy(st.stamps[robot * K : robot * K + n])
 
     def keyframe_stamps(self, robot: int | None = None) -> np.ndarray:
         return self.trajectory_with_stamps(robot)[1]
@@ -956,3 +1343,47 @@ class Mapper:
             name = chr(ord("a") + r)
             tio.save_tum(os.path.join(directory, f"{name}_tum.txt"), poses, stamps)
             tio.save_kitti(os.path.join(directory, f"{name}_kitti.txt"), poses)
+
+    def global_map(self, max_points: int = 1 << 18) -> np.ndarray:
+        """The assembled global map: a prefix of every keyframe's cloud in
+        the map frame (the per-keyframe budget rounded down to a power of
+        two), merged, stride-subsampled to ``max_points`` and
+        voxel-downsampled at ``map_leaf_size``. Peer keyframes have no
+        cloud here."""
+        with self._write_lock:
+            n = int(self.state.counts.sum())
+            if n == 0:
+                return np.zeros((0, 3), np.float32)
+            P = self.cfg.keyframe.points_per_keyframe
+            per = max(1, min(P, max_points // n))
+            per = 1 << (per.bit_length() - 1)
+            world, mask = _gather_global_map(self.state, per)
+        merged = world.reshape(-1, 3)[mask.reshape(-1)]
+        if merged.shape[0] == 0:
+            return np.zeros((0, 3), np.float32)
+        cloud = pc.from_points(merged, min(merged.shape[0], max_points))
+        ds = pc.voxel_downsample(cloud, self.cfg.keyframe.map_leaf_size)
+        return to_numpy(ds.xyz[ds.mask])
+
+    def loop_constraints(self) -> list[dict]:
+        """The loop factors of the graph (every edge but the odometry
+        chain): endpoint slots, their optimized positions, ``intra`` or
+        ``inter``, and the factor's sigma."""
+        K = self.cfg.keyframe.max_keyframes
+        with self._write_lock:
+            g = self.state.graph
+            n = int(g.num_edges)
+            i, j = to_numpy(g.i[:n]), to_numpy(g.j[:n])
+            si = to_numpy(g.sqrt_info[:n, 0])
+            opt_t = to_numpy(self.state.opt_t)
+        out = []
+        for e in range(n):
+            a, b = int(i[e]), int(j[e])
+            if b - a == 1 and a // K == b // K:
+                continue  # odometry edge
+            out.append({
+                "i": a, "j": b, "pi": opt_t[a].tolist(), "pj": opt_t[b].tolist(),
+                "kind": "intra" if a // K == b // K else "inter",
+                "sigma": float(1.0 / max(float(si[e]), 1e-9)),
+            })
+        return out

@@ -7,7 +7,7 @@ options):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts= -q
 
-The ``cuda`` tests launch the CUDA kernels and hold them against their
+The ``cuda`` tests launch the CUDA kernels (K1, K2, K3, K4) and hold them against their
 plain PyTorch versions on the card; they skip without one. The input
 makers here are shared with ``test_torch_kernels.py``, which holds the
 plain versions against the JAX package.
@@ -112,7 +112,12 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     )
     q, payload, _ = nn_solo_inputs(6, 64, 256)
     kernels.nn_select(torch.from_numpy(q), torch.from_numpy(payload))
-    assert kernels.LAUNCHES == {"nn_select_batched": 0, "max_image": 0, "nn_select": 0}
+    d, idx = kernels.nearest_neighbors(torch.from_numpy(q), torch.from_numpy(payload[:3].T.copy()))
+    assert torch.equal(d, kernels.nearest_neighbors_plain(torch.from_numpy(q), torch.from_numpy(payload[:3].T.copy()))[0])
+    assert idx.dtype == torch.int32
+    assert kernels.LAUNCHES == {
+        "nn_select_batched": 0, "max_image": 0, "nn_select": 0, "nearest_neighbors": 0,
+    }
 
 
 def test_wrappers_reject_bad_inputs():
@@ -125,6 +130,12 @@ def test_wrappers_reject_bad_inputs():
         kernels.nn_select(q, torch.zeros(4, 16))
     with pytest.raises(ValueError):  # fewer than 3 payload rows
         kernels.nn_select(q[0], torch.zeros(2, 16))
+    with pytest.raises(ValueError):  # K3: a batched query
+        kernels.nearest_neighbors(q, torch.zeros(16, 3))
+    with pytest.raises(ValueError):  # K3: a [3, Nt] target
+        kernels.nearest_neighbors(q[0], torch.zeros(3, 16))
+    with pytest.raises(ValueError):  # K3: float64
+        kernels.nearest_neighbors(q[0].double(), torch.zeros(16, 3, dtype=torch.float64))
     z = torch.zeros(1, 16)
     with pytest.raises(ValueError):
         kernels.max_image(z, torch.zeros(1, 16, dtype=torch.int64), torch.zeros(1, 16, dtype=torch.int32), torch.ones(1, 16, dtype=torch.bool), 20, 60)
@@ -178,3 +189,24 @@ def test_k4_cuda_kernel_matches_plain(cuda_device):
         assert torch.equal(d, d_ref)
         assert torch.equal(sel, sel_ref)
     assert kernels.LAUNCHES["nn_select"] == len(shapes)
+
+
+@pytest.mark.cuda
+def test_k3_cuda_kernel_matches_plain(cuda_device):
+    """d2 bit-equal and the index equal (lowest index on exact ties; PAD
+    targets; no target gives (inf, 0)) at the verification shapes and at
+    ragged sizes."""
+    kernels.reset_launch_counts()
+    shapes = ((256, 4096), (4096, 8192), (1000, 3001), (7, 50))
+    for nq, nt in shapes:
+        q, payload, _ = nn_solo_inputs(nq + 3, nq, nt, 4)
+        target = np.ascontiguousarray(payload[:3].T)
+        args = [torch.from_numpy(x).to(cuda_device) for x in (q, target)]
+        d, idx = kernels.nearest_neighbors(*args)
+        d_ref, idx_ref = kernels.nearest_neighbors_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(d, d_ref)
+        assert torch.equal(idx, idx_ref)
+    assert kernels.LAUNCHES["nearest_neighbors"] == len(shapes)
+    d, idx = kernels.nearest_neighbors(args[0], args[1][:0])
+    assert torch.isinf(d).all() and (idx == 0).all()
