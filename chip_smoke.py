@@ -10,7 +10,8 @@ Phases (any failure raises, and the script exits non-zero):
 1. the card: fails without CUDA; prints ``nvidia-smi``'s name and power
    limit;
 2. builds the CUDA kernels from ``scl_slam_tpu_torch/csrc`` with nvcc and
-   prints the build seconds and ptxas' register/shared-memory report;
+   prints the build seconds (beside those of one nvcc call of the same
+   sources and flags) and ptxas' register/shared-memory report;
 3. K1 (batched 1-NN + payload select) against its plain PyTorch version on
    the card at both ICP shapes of the replay path, with inactive lanes and
    planted exact ties: d2 bit-equal, selection equal up to the stated tie
@@ -59,7 +60,30 @@ Phases (any failure raises, and the script exits non-zero):
    card, which must make the same retrieval hits and inter-loop decisions,
    with the trajectories within the stated tolerance;
 12. ``run_multi --robots 2 --transport tcp`` on the card: two worker
-   processes share it and verify inter-robot loops over sockets.
+   processes share it and verify inter-robot loops over sockets;
+13. K6 (batched RANSAC hypothesis scoring: inlier counts) against its
+   plain version on the card at the fleet bench's 16 x 256 x 1,024, at a
+   full keyframe's 16 x 256 x 4,096 and at a ragged 3 x 37 x 1,000, with
+   points planted exactly on the threshold and a lane without a good
+   point: counts equal;
+14. the fleet bench at full width (bench.py's fleet workload built in code:
+   2 robots x 2,048 keyframes of 4,096 points, 65,536-point scans,
+   8,192-point submaps, 20 ICP iterations): 4 steps of 16 keyframes through
+   ``_fleet_step`` on a fresh state, median of 5 runs ended by a
+   synchronize (``fleet_frames_per_s``), with the K1, K2 and K6 launches,
+   the intra and inter attempts and the loops of an untimed run before
+   them (their counting reads the card); one step under
+   torch.profiler (``chiprun_out/profile_fleet.txt``);
+15. ``run_multi --robots 2 --fleet`` at its defaults (120 frames, the
+   default ``SlamConfig``): it must verify inter-robot loops through K6;
+   its loop count is printed beside phase 11's decentralized one;
+16. tests/test_fleet.py's reduced two-robot fleet on the CPU and on the
+   card: the same retrieval hits, the same intra and inter decisions, the
+   same keyframes per robot block, the trajectories within the stated
+   tolerance;
+17. eviction on the card: a fleet at 8 keyframes a robot and a replay past
+   its capacity compact their blocks, keep the protocol indices monotone
+   and export every keyframe through ``full_trajectory``.
 
 Kernel times are CUDA events around replays of a CUDA graph of the call
 (device time without the host's launch cost), beside the eager call's
@@ -231,7 +255,21 @@ def phase_build(kernels) -> float:
     path, out = kernels.build(verbose=True)
     secs = time.perf_counter() - t0
     kernels.load_library()
-    log(f"[2] built {os.path.relpath(path, ROOT)} in {secs:.2f} s")
+    log(f"[2] built {os.path.relpath(path, ROOT)} in {secs:.2f} s "
+        f"(one nvcc -c per source, all at once, then a link)")
+    # for comparison: the same sources and flags in one nvcc call
+    one = path.with_name(f".one_call.{os.getpid()}.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(one),
+         *map(str, kernels._sources())],
+        capture_output=True, text=True,
+    )
+    one_secs = time.perf_counter() - t0
+    one.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"one-call nvcc build failed:\n{proc.stdout}\n{proc.stderr}")
+    log(f"[2] the same sources and flags in one nvcc call: {one_secs:.2f} s")
     for line in out.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"[2]   {line.strip()}")
@@ -1072,6 +1110,7 @@ def phase_multi(torch, kernels) -> dict:
                   lambda: [mapper.serve_verification(req) for _ in range(10)], "profile_verify.txt")
     del mapper, req, last[:]
 
+    inter2 = rep["inter_loops"]
     rc3, rep3 = run_multi_report(["--robots", "3", "--output", out_dir + "3"])
     log(f"[11] run_multi --robots 3 (defaults) -> {json.dumps(rep3)}")
     if rc3 != 0 or rep3["inter_loops"] < 1 or len(rep3["ate_rmse_m"]) != 3:
@@ -1097,7 +1136,372 @@ def phase_multi(torch, kernels) -> dict:
     log(f"[11] reduced two-robot session (40 frames): {len(hc)} retrieval hits and {len(ic)} verified "
         f"inter loops, equal on cpu ({sc:.1f} s) and cuda ({sg:.2f} s); max |d inlier ratio| "
         f"{dratio:.2e}, aligned trajectories within {dtraj:.2e} m")
+    return launches, inter2
+
+
+def ransac_inputs(torch, B, H, N, seed, thr=0.25):
+    """K6 inputs on the card: each lane's matched points are its source
+    points under a random pose plus noise, its hypotheses that pose
+    perturbed; ~10% of the points not good, lane 1 without a good point.
+    Lane 0's source is an integer grid and its hypothesis 0 the identity: a
+    quarter of its matched points sit exactly ``thr`` away (res2 == thr2:
+    out), a quarter just inside."""
+    rng = np.random.RandomState(seed)
+
+    def rot(w):
+        th = np.linalg.norm(w)
+        k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+        return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+
+    src = rng.uniform(-30, 30, (B, N, 3)).astype(np.float32)
+    src[0] = np.round(src[0])
+    R = np.empty((B, H, 3, 3), np.float32)
+    t = np.empty((B, H, 3), np.float32)
+    matched = np.empty_like(src)
+    for b in range(B):
+        Rb, tb = rot(rng.normal(0, 0.3, 3)), rng.uniform(-5, 5, 3)
+        matched[b] = src[b] @ Rb.T + tb + rng.normal(0, 0.2, (N, 3))
+        R[b] = [rot(rng.normal(0, 0.01, 3)) @ Rb for _ in range(H)]
+        t[b] = tb + rng.normal(0, 0.1, (H, 3))
+    R[0, 0], t[0, 0] = np.eye(3), 0.0
+    q = N // 4
+    matched[0, :q] = src[0, :q] + np.float32([thr, 0, 0])
+    matched[0, q : 2 * q] = src[0, q : 2 * q] + np.float32([thr * (1 - 2.0**-10), 0, 0])
+    good = rng.rand(B, N) > 0.1
+    good[1] = False
+    dev = torch.device("cuda")
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (src, matched.astype(np.float32), good, R, t)], thr * thr
+
+
+def phase_k6(torch, kernels) -> dict:
+    res = {}
+    for B, H, N, label in ((16, 256, 1024, "fleet"), (16, 256, 4096, "keyframe"),
+                           (3, 37, 1000, "ragged")):
+        args, thr2 = ransac_inputs(torch, B, H, N, seed=B + H + N)
+        counts = kernels.ransac_counts_batched(*args, thr2)
+        ref = kernels.ransac_counts_batched_plain(*args, thr2)
+        torch.cuda.synchronize()
+        if not torch.equal(counts, ref):
+            raise AssertionError(f"K6 {label}: counts differ from the plain version in "
+                                 f"{(counts != ref).sum().item()} places")
+        if not (counts[1] == 0).all():
+            raise AssertionError(f"K6 {label}: the lane without a good point has inliers")
+        q = N // 4
+        half = kernels.ransac_counts_batched(
+            *(a[:1, : 2 * q].contiguous() for a in args[:3]),
+            args[3][:1, :1].contiguous(), args[4][:1, :1].contiguous(), thr2,
+        )
+        if int(half[0, 0]) != int(args[2][0, q : 2 * q].sum()):
+            raise AssertionError(f"K6 {label}: the points planted on the threshold were miscounted")
+        call_ms = time_cuda(torch, lambda: kernels.ransac_counts_batched(*args, thr2), reps=50)
+        ms = time_graph(torch, lambda: kernels.ransac_counts_batched(*args, thr2), reps=50)
+        plain_ms = time_graph(torch, lambda: kernels.ransac_counts_batched_plain(*args, thr2), reps=10)
+        # 27 FP32 operations per (hypothesis, point): 18 for the transform,
+        # 3 subtracts, 3 multiplies, 2 adds and the compare; bytes: the
+        # points once, the poses once, the counts written once
+        bound_ms, bound_by = bound(B * N * (12 + 12 + 1) + B * H * (36 + 12 + 4), 27 * B * H * N)
+        log(f"[13] K6 {label} {B}x{H}x{N}: counts equal (the planted on-threshold points out), "
+            f"kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        res[label] = {"max_abs_err": float((counts - ref).abs().max().item()), "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return res
+
+
+def fleet_bench_cfg():
+    from scl_slam_tpu_torch.config import (
+        KeyframeConfig, LoopConfig, OptimizerConfig, SlamConfig,
+    )
+
+    # bench.py:320-345 (bench_fleet, full size)
+    return SlamConfig(
+        number_of_robots=2,
+        keyframe=KeyframeConfig(max_keyframes=2048, points_per_keyframe=4096,
+                                raw_points_capacity=65536),
+        loop=LoopConfig(near_keyframes=25, submap_capacity=8192, icp_iterations=20),
+        optimizer=OptimizerConfig(edge_capacity=2048, gn_iters=4, cg_iters=32),
+    )
+
+
+def phase_fleet_bench(torch, kernels) -> dict:
+    """Phase 14: bench.py's fleet workload (bench.py:346-414): one staged
+    batch of 16 scans (robots alternating) reused over 4 steps with shifted
+    poses, on a fresh state per run."""
+    from scl_slam_tpu_torch.ops import registration as reg
+    from scl_slam_tpu_torch.runtime import fleet as F
+    from scl_slam_tpu_torch.runtime import mapper as M
+
+    cfg = fleet_bench_cfg()
+    B, n_steps = 16, 4
+    n_pts = cfg.keyframe.raw_points_capacity
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(1)
+    scans = []
+    for k in range(B):
+        theta = rng.uniform(-np.pi, np.pi, n_pts)
+        r = rng.uniform(2, 75, n_pts)
+        z = np.sin(theta * 3 + k * 0.1) * 2 + rng.normal(0, 0.4, n_pts) - 1.0
+        scans.append(np.stack([r * np.cos(theta), r * np.sin(theta), z], -1).astype(np.float32))
+    xs = torch.from_numpy(np.stack(scans)).to(dev)
+    masks = torch.ones((B, n_pts), dtype=torch.bool, device=dev)
+    robots = torch.tensor([k % 2 for k in range(B)], dtype=torch.int32, device=dev)
+    pose_R = torch.eye(3, device=dev).expand(B, 3, 3).contiguous()
+    pose_ts = [torch.tensor([[2.0 * (s * B + k), 4.0 * (k % 2), 0.0] for k in range(B)],
+                            device=dev) for s in range(n_steps)]
+    stamps = torch.zeros((B,), device=dev)
+    attempts = {"intra": 0, "inter": 0}
+
+    def counting(name):
+        def wrap(fn):
+            def counted(*a, **k):
+                attempts[name] += int(a[3].sum()) if name == "intra" else int(a[4].sum())
+                return fn(*a, **k)
+            return counted
+        return wrap
+
+    def run():
+        state = M.make_state(cfg, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = []
+        for s in range(n_steps):
+            state, out = F._fleet_step(state, 0, s, robots, pose_R, pose_ts[s], xs, masks,
+                                       stamps, cfg)
+            outs.append(out)
+        torch.cuda.synchronize()
+        return state, outs, time.perf_counter() - t
+
+    # the warm-up run counts launches and attempts; the counting wrappers
+    # read the card, so the 5 timed runs go without them
+    undos = [patched(reg, "icp_batched", counting("intra")),
+             patched(reg, "ransac_align_batched", counting("inter"))]
+    try:
+        kernels.reset_launch_counts()
+        state, outs, _ = run()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for u in undos:
+            u()
+    times = [run()[2] for _ in range(5)]
+    fps = B * n_steps / float(np.median(times))
+    ok_i = sum(int(o[0].sum()) for o in outs)
+    ok_x = sum(int(o[3].sum()) for o in outs)
+    n = B * n_steps
+    K = cfg.keyframe.max_keyframes
+    checks = {
+        "counts": state.counts.tolist() == [n // 2, n // 2],
+        "finite": bool(torch.isfinite(state.opt_t).all()),
+        "indices": state.desc_db.index[: n // 2].tolist() == list(range(n // 2))
+        and state.desc_db.index[K : K + n // 2].tolist() == list(range(n // 2)),
+        "edges": int(state.graph.num_edges) == n - 2 and int(state.graph.num_priors) == 2,
+        "queue": int(state.loop_queue.count) == ok_i + ok_x,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"fleet bench state checks failed: {checks}")
+    if launches["max_image"] < n_steps:
+        raise AssertionError(f"the fleet bench did not go through K2: {launches}")
+    log(f"[14] fleet bench {n_steps} x {B} keyframes (2 robots, {n_pts}-point scans, "
+        f"{K} keyframes a robot), 5 runs: fleet_frames_per_s median {fps:.2f} "
+        f"(run seconds {', '.join(f'{x:.4f}' for x in times)}); launches in the untimed counted run "
+        f"{launches}; attempts intra {attempts['intra']}, inter {attempts['inter']}; loops "
+        f"intra {ok_i}, inter {ok_x}; state checks ok")
+    state = M.make_state(cfg, dev)
+    for s in range(n_steps - 1):
+        state, _ = F._fleet_step(state, 0, s, robots, pose_R, pose_ts[s], xs, masks, stamps, cfg)
+    profile_block(torch, "[14]", "the last fleet step of a run",
+                  lambda: F._fleet_step(state, 0, n_steps - 1, robots, pose_R,
+                                        pose_ts[n_steps - 1], xs, masks, stamps, cfg),
+                  "profile_fleet.txt")
+    return {"fleet_frames_per_s": fps, "launches": launches}
+
+
+def phase_fleet_run(torch, kernels, decentralized_inter: int) -> dict:
+    """Phase 15: ``run_multi --robots 2 --fleet`` at its defaults; returns
+    its kernel launch counts."""
+    out_dir = os.path.join(ROOT, "chiprun_out", "run_multi_fleet")
+    kernels.reset_launch_counts()
+    rc, rep = run_multi_report(["--robots", "2", "--fleet", "--output", out_dir])
+    launches = dict(kernels.LAUNCHES)
+    log(f"[15] run_multi --robots 2 --fleet (defaults) -> {json.dumps(rep)}")
+    log(f"[15] launches {launches}")
+    if rc != 0 or rep["inter_loops"] < 1 or launches["ransac_counts_batched"] < 1:
+        raise AssertionError(f"the fleet run verified no inter-robot loop through K6 (rc {rc})")
+    if rep["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the fleet run did not run on the card: {rep['device']}")
+    if not all(np.isfinite(v) and v < 1.0 for v in rep["ate_rmse_m"].values()):
+        raise AssertionError(f"joint ATE out of bounds: {rep['ate_rmse_m']}")
+    log(f"[15] inter loops: fleet {rep['inter_loops']}, decentralized (phase 11) "
+        f"{decentralized_inter}; wall {rep['wall_s']} s; ATE {rep['ate_rmse_m']} m; "
+        f"K6 launches {launches['ransac_counts_batched']}")
     return launches
+
+
+def reduced_fleet_cfg(max_keyframes: int = 64):
+    """tests/test_fleet.py::fleet_cfg."""
+    from scl_slam_tpu_torch.config import (
+        KeyframeConfig, LoopConfig, OptimizerConfig, ScanContextParams, SlamConfig,
+    )
+
+    return SlamConfig(
+        number_of_robots=2, robot_id=0,
+        keyframe=KeyframeConfig(max_keyframes=max_keyframes, points_per_keyframe=2048,
+                                raw_points_capacity=4096, distance_threshold=2.0,
+                                descript_leaf_size=0.3),
+        loop=LoopConfig(near_keyframes=4, submap_capacity=8192, icp_iterations=20,
+                        history_fitness_score=8.0, ransac_inlier_ratio=0.3,
+                        ransac_outlier_threshold=1.0),
+        optimizer=OptimizerConfig(edge_capacity=512, gn_iters=6, cg_iters=48,
+                                  odometry_sigmas=(0.005,) * 3 + (0.05,) * 3,
+                                  loop_noise_scale=0.05),
+        scan_context=ScanContextParams(exclude_recent=10, num_candidates=6,
+                                       distance_threshold=0.25),
+    )
+
+
+def reduced_fleet_run(torch, device: str):
+    """tests/test_fleet.py::fleet_run in the port's code: two robots on
+    overlapping arcs of a 32 m circle, robot b's odometry drifting 5 cm and
+    1 mrad a frame. Returns (retrieval hits per step, events, counts,
+    trajectories, seconds)."""
+    from scl_slam_tpu_torch.geometry import se3
+    from scl_slam_tpu_torch.io import kitti as kio
+    from scl_slam_tpu_torch.ops import registration as reg
+    from scl_slam_tpu_torch.runtime import FleetMapper
+
+    world = kio.SyntheticWorld(seed=9, extent=100.0, n_clusters=70, pts_per_cluster=800)
+    gt = kio.loop_trajectory(n_frames=64, radius=32.0, revisit=False)
+    split = [list(range(0, 40)), list(range(28, 64))]
+    drift = se3.to_matrix(se3.exp(torch.tensor([0, 0, 0.001, 0.05, 0, 0]))).numpy()
+    odom = {split[1][0]: gt[split[1][0]]}
+    for k in split[1][1:]:
+        odom[k] = odom[k - 1] @ np.linalg.inv(gt[k - 1]) @ gt[k] @ drift
+    hits = []
+
+    def recording(fn):
+        def ransac(*a, **k):
+            hits.append(a[4].nonzero().flatten().tolist())
+            return fn(*a, **k)
+        return ransac
+
+    undo = patched(reg, "ransac_align_batched", recording)
+    try:
+        fm = FleetMapper(reduced_fleet_cfg(), device)
+        events = []
+        t = time.perf_counter()
+        for step in range(max(len(s) for s in split)):
+            for rid, frames in enumerate(split):
+                if step < len(frames):
+                    k = frames[step]
+                    T = (gt[k] if rid == 0 else odom[k]).astype(np.float32)
+                    fm.add_robot_frame(rid, se3.Pose(T[:3, :3], T[:3, 3]),
+                                       world.scan_at(gt[k], max_points=4096, seed=k), stamp=0.1 * k)
+            events.extend(fm.step())
+        fm.optimize()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        undo()
+    return hits, events, fm.state.counts.tolist(), [fm.trajectory(robot=r) for r in range(2)], secs
+
+
+def phase_reduced_fleet(torch) -> None:
+    from scl_slam_tpu_torch.io import trajectory as tio
+
+    runs = {d: reduced_fleet_run(torch, d) for d in ("cpu", "cuda")}
+    (hc, ec, cc, tc, sc), (hg, eg, cg, tg, sg) = runs["cpu"], runs["cuda"]
+    if hc != hg:
+        raise AssertionError(f"retrieval hits differ: cpu {hc} cuda {hg}")
+    if cc != cg or cc != [40, 36]:
+        raise AssertionError(f"keyframes per robot block differ: cpu {cc} cuda {cg}")
+
+    def decisions(evs):
+        return [(b, e["robot"], "loop" in e,
+                 (e["inter_loop"]["robot"], e["inter_loop"]["matched_index"]) if "inter_loop" in e else None)
+                for b, e in enumerate(evs)]
+
+    if decisions(ec) != decisions(eg):
+        raise AssertionError("intra/inter decisions differ between cpu and cuda")
+    inter_c = [e["inter_loop"]["inlier_ratio"] for e in ec if "inter_loop" in e]
+    inter_g = [e["inter_loop"]["inlier_ratio"] for e in eg if "inter_loop" in e]
+    if not inter_c:
+        raise AssertionError("the reduced fleet verified no inter-robot loop")
+    # stated tolerances: the same RANSAC draws on both devices (a counter
+    # hash), so the inlier ratios agree to a few inliers (the devices' SVD
+    # and sums differ in the last bits: 5e-3); the trajectories after a
+    # rigid alignment to 2e-2 m (phases 8 and 11, for the same reasons)
+    dratio = float(np.max(np.abs(np.array(inter_c) - np.array(inter_g))))
+    dtraj = 0.0
+    for a, b in zip(tc, tg):
+        _, Ra, ta = tio.umeyama_align(b[:, :3, 3], a[:, :3, 3])
+        dtraj = max(dtraj, float(np.abs((Ra @ b[:, :3, 3].T).T + ta - a[:, :3, 3]).max()))
+    if dratio > 5e-3 or dtraj > 2e-2:
+        raise AssertionError(f"cpu/cuda disagree: inlier ratio {dratio}, aligned trajectory {dtraj} m")
+    log(f"[16] reduced fleet (tests/test_fleet.py's scenario, 76 keyframes): "
+        f"{sum(len(h) for h in hc)} retrieval hits, {len(inter_c)} inter and "
+        f"{sum('loop' in e for e in ec)} intra loops, equal on cpu ({sc:.1f} s) and cuda "
+        f"({sg:.2f} s); max |d inlier ratio| {dratio:.2e}, aligned trajectories within {dtraj:.2e} m")
+
+
+def phase_eviction(torch) -> None:
+    import dataclasses
+
+    from scl_slam_tpu_torch.config import (
+        KeyframeConfig, LoopConfig, OptimizerConfig, ScanContextParams, SlamConfig,
+    )
+    from scl_slam_tpu_torch.geometry import se3
+    from scl_slam_tpu_torch.io import kitti as kio
+    from scl_slam_tpu_torch.runtime import FleetMapper
+    from scl_slam_tpu_torch.runtime import mapper as M
+
+    # the fleet at 8 keyframes a robot (tests/test_fleet.py's eviction test)
+    world = kio.SyntheticWorld(seed=4)
+    gt = kio.loop_trajectory(n_frames=40, radius=25.0, revisit=False).astype(np.float32)
+    cfg = reduced_fleet_cfg(max_keyframes=8)
+    cfg = dataclasses.replace(cfg, loop=dataclasses.replace(
+        cfg.loop, intra_enabled=False, inter_enabled=False))
+    fm = FleetMapper(cfg)
+    for k in range(0, 40, 2):
+        fm.add_robot_frame(0, se3.Pose(gt[k][:3, :3], gt[k][:3, 3]),
+                           world.scan_at(gt[k], 4096, seed=k), stamp=0.1 * k)
+        fm.step()
+    n = int(fm.state.counts[0])
+    idx = fm.state.desc_db.index[:n].cpu()
+    poses, stamps = fm.full_trajectory(robot=0)
+    if not (n <= 8 and len(fm._evicted.get(0, [])) == 20 - n and bool((idx.diff() > 0).all())
+            and len(poses) == 20 and np.all(np.diff(stamps) > 0)):
+        raise AssertionError(f"fleet eviction: {n} resident, {len(poses)} exported")
+
+    # a replay past capacity: tests/test_eviction.py's configuration, on
+    # the card and on the CPU
+    ecfg = SlamConfig(
+        keyframe=KeyframeConfig(max_keyframes=24, points_per_keyframe=256,
+                                raw_points_capacity=512, evict_keep_recent=4,
+                                evict_stride=2, distance_threshold=0.5),
+        loop=LoopConfig(near_keyframes=2, submap_capacity=512, queue_capacity=8,
+                        intra_enabled=False, inter_enabled=False),
+        optimizer=OptimizerConfig(edge_capacity=96, gn_iters=2, cg_iters=8),
+        scan_context=ScanContextParams(exclude_recent=2),
+    )
+    rng = np.random.RandomState(7)
+    scans = [rng.uniform(-20, 20, (256, 3)).astype(np.float32) for _ in range(60)]
+    eye = np.eye(3, dtype=np.float32)
+    poses_in = [se3.Pose(eye, np.float32([2.0 * k, 0, 0])) for k in range(60)]
+    out = {}
+    for device in ("cpu", "cuda"):
+        m = M.Mapper(ecfg, device)
+        m.replay(poses_in, scans, [float(k) for k in range(60)], batch=8, chunk_batches=1)
+        out[device] = (m.state.desc_db.index[:24].cpu().numpy(), *m.full_trajectory(0),
+                       len(m._evicted.get(0, [])))
+    (ic, pc_, sc_, ec), (ig, pg, sg, eg) = out["cpu"], out["cuda"]
+    if not (np.array_equal(ic, ig) and ec == eg > 0 and len(pg) == 60
+            and np.array_equal(sg, np.arange(60.0)) and float(np.abs(pc_ - pg).max()) < 1e-4):
+        raise AssertionError("replay eviction differs between cpu and cuda, or lost keyframes")
+    log(f"[17] eviction on the card: the fleet at 8 keyframes a robot holds {n} of 20 and "
+        f"exports 20 in order; a 60-keyframe replay into 24 slots evicted {eg} keyframes, "
+        f"the same indices as on the cpu, full_trajectory 60 poses within "
+        f"{float(np.abs(pc_ - pg).max()):.2e} m of the cpu's")
 
 
 def phase_tcp(torch) -> None:
@@ -1128,8 +1532,13 @@ def main() -> int:
     live = phase_live_demo(torch, kernels)
     phase_live_kitti(torch, kernels)
     k3 = phase_k3(torch, kernels)
-    multi = phase_multi(torch, kernels)
+    multi, inter2 = phase_multi(torch, kernels)
     phase_tcp(torch)
+    k6 = phase_k6(torch, kernels)
+    phase_fleet_bench(torch, kernels)
+    fleet = phase_fleet_run(torch, kernels, inter2)
+    phase_reduced_fleet(torch)
+    phase_eviction(torch)
 
     def entry(name, source, replaces, n, res, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"scl_slam_tpu_torch/csrc/{source}",
@@ -1138,14 +1547,17 @@ def main() -> int:
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": library_ms}
 
     # launches: K1 and K2 from the replay run (phase 5), K4 from the live
-    # demo (phase 8), K3 from the two-robot run (phase 11); K1, K3 and K4
-    # have no single PyTorch call (library_ms null)
+    # demo (phase 8), K3 from the two-robot run (phase 11), K6 from the
+    # fleet run (phase 15); K1, K3, K4 and K6 have no single PyTorch call
+    # (library_ms null)
     report = {"kernels": [
         entry("nn_select_batched", "nn_select_batched.cu", 273,
               launches["nn_select_batched"], k1["full"]),
         entry("max_image", "max_image.cu", 1053, launches["max_image"], k2, k2["library_ms"]),
         entry("nn_select", "nn_select.cu", 132, live["nn_select"], k4["full"]),
         entry("nearest_neighbors", "nn_select.cu", 532, multi["nearest_neighbors"], k3["full"]),
+        entry("ransac_counts_batched", "ransac_counts.cu", 898, fleet["ransac_counts_batched"],
+              k6["fleet"]),
     ]}
     log(f"card: {smi}")
     print(json.dumps(report), flush=True)

@@ -78,6 +78,26 @@ def db_insert_block(
     return db
 
 
+def db_insert_rows(
+    db: DescriptorDB,
+    descriptors: torch.Tensor,
+    keys: torch.Tensor,
+    robots: torch.Tensor,
+    indices: torch.Tensor,
+    pos: torch.Tensor,
+) -> DescriptorDB:
+    """B-row insert at distinct rows ``pos`` [B], in place: a fleet batch
+    interleaves robots, so its rows are consecutive per robot but not
+    overall. The caller guarantees every row is in range."""
+    rows = pos.long()
+    db.descriptors[rows] = descriptors.to(db.descriptors.dtype)
+    db.keys[rows] = keys.to(db.keys.dtype)
+    db.robot[rows] = robots.to(torch.int32)
+    db.index[rows] = indices.to(torch.int32)
+    db.count.add_(rows.shape[0])
+    return db
+
+
 class Match(NamedTuple):
     """Result of a loop-closure query (batched: every field [B])."""
 
@@ -99,11 +119,15 @@ def candidate_mask(
     """Validity mask over DB slots, [..., cap] for query_index [...].
 
     ``intra``: same robot, excluding the most recent ``exclude_recent``
-    keyframes; ``inter``: other robots only.
+    keyframes; ``inter``: other robots only. ``query_robot`` is one robot
+    for every query, or one per query (a tensor shaped like
+    ``query_index``: a fleet batch mixes robots).
     """
-    query_index = torch.as_tensor(query_index, device=db.index.device)
+    dev = db.index.device
+    query_index = torch.as_tensor(query_index, device=dev)
+    query_robot = torch.as_tensor(query_robot, device=dev)
     valid = db.index >= 0
-    same = db.robot == query_robot
+    same = db.robot == query_robot[..., None]
     if mode == "intra":
         not_recent = db.index < (query_index[..., None] - exclude_recent)
         return valid & same & not_recent

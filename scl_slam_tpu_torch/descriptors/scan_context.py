@@ -120,14 +120,15 @@ def to_wire(sc: ScanContext) -> torch.Tensor:
 def query(
     db: base.DescriptorDB,
     sc: ScanContext,
-    query_robot: int,
+    query_robot,
     query_index: torch.Tensor,
     cfg: ScanContextConfig,
     mode: str = "intra",
 ) -> base.Match:
     """Two-stage loop detection for B query frames at once.
 
-    sc: batched ScanContext ([B, R, S] images); query_index [B]. Stage 1:
+    sc: batched ScanContext ([B, R, S] images); query_index [B];
+    query_robot one robot, or [B] robots (a fleet batch). Stage 1:
     ``num_candidates`` nearest ring keys (masked top-k); stage 2: the full
     shifted cosine distance on them; accept the best below
     ``distance_threshold``.

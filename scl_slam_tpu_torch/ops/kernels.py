@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels of the replay, live and inter-robot paths,
-their plain PyTorch versions, and the build that binds them (counterpart
-of ``scl_slam_tpu/ops/pallas_kernels.py``).
+"""Hand-written CUDA kernels of the replay, live, inter-robot and fleet
+paths, their plain PyTorch versions, and the build that binds them
+(counterpart of ``scl_slam_tpu/ops/pallas_kernels.py``).
 
 ========  ==============================  ===================================
 kernel    replaces (TPU, Pallas)          source
@@ -12,13 +12,15 @@ K2        ``max_image_pallas`` (exact     ``csrc/max_image.cu``
 K3        ``nearest_neighbors_pallas``    ``csrc/nn_select.cu`` (shares
                                           K4's first pass)
 K4        ``nn_select_pallas``            ``csrc/nn_select.cu``
+K6        ``ransac_counts_batched_pallas``  ``csrc/ransac_counts.cu``
 ========  ==============================  ===================================
 
 Each wrapper takes its plain version for CPU tensors, and only then. On a
 CUDA tensor it launches its kernel or raises; nothing falls back. The
 kernels are compiled on first use with ``nvcc`` (for ``sm_90a``, with
-``-fmad=false`` so no multiply-add is contracted) into a shared library
-with a plain C interface under ``_build/``, and loaded with ``ctypes``.
+``-fmad=false`` so no multiply-add is contracted; one ``nvcc`` per source,
+all started together, then one link) into a shared library with a plain C
+interface under ``_build/``, and loaded with ``ctypes``.
 ``LAUNCHES`` counts the kernel launches per wrapper, so a run can show that
 it went through them (K3 and K4 are two launches each, a partial pass and
 a reduction, counted as one call).
@@ -41,12 +43,13 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # kernel launches per wrapper since the last reset_launch_counts()
 LAUNCHES = {
     "nn_select_batched": 0, "max_image": 0, "nn_select": 0, "nearest_neighbors": 0,
+    "ransac_counts_batched": 0,
 }
 
 _lib = None
@@ -75,7 +78,8 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> tuple[Path, str]:
     """Compile ``csrc/*.cu`` into ``_build/`` unless a library built from
-    the same sources and flags is already there.
+    the same sources and flags is already there: one ``nvcc -c`` per
+    source, all running at once, then one ``nvcc -shared`` link.
 
     Returns (library path, compiler output). ``verbose`` adds
     ``-Xptxas -v`` (registers, shared memory and spills per kernel) and
@@ -89,19 +93,39 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     lib = BUILD_DIR / f"libscl_kernels_{h.hexdigest()[:16]}.so"
     if lib.exists() and not verbose:
         return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    work = BUILD_DIR / f".{lib.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        extra = ["-Xptxas", "-v"] if verbose else []
+        procs = [
+            (s, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(work / f"{s.stem}.o"), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+            for s in srcs
+        ]
+        outs, failed = [], []
+        for s, proc in procs:
+            out, _ = proc.communicate()
+            outs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{s.name} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        tmp = work / lib.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(work / f"{s.stem}.o") for s in srcs)],
+            capture_output=True, text=True,
         )
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib, proc.stdout + proc.stderr
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}"
+            )
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib, "".join(outs) + link.stdout + link.stderr
 
 
 def load_library() -> ctypes.CDLL:
@@ -120,6 +144,10 @@ def load_library() -> ctypes.CDLL:
             lib.scl_nn_select.restype = i
             lib.scl_nearest_neighbors.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
             lib.scl_nearest_neighbors.restype = i
+            lib.scl_ransac_counts_batched.argtypes = [
+                p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p,
+            ]
+            lib.scl_ransac_counts_batched.restype = i
             lib.scl_cuda_error_string.argtypes = [i]
             lib.scl_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -506,3 +534,96 @@ def nearest_neighbors(query: torch.Tensor, target: torch.Tensor):
     _check_launch(lib, rc, "nearest_neighbors")
     LAUNCHES["nearest_neighbors"] += 1
     return d2, idx
+
+
+# ---------------------------------------------------------------------------
+# K6: batched RANSAC hypothesis scoring
+# ---------------------------------------------------------------------------
+
+
+def ransac_counts_batched_plain(
+    source: torch.Tensor,
+    matched: torch.Tensor,
+    good: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    thr2: float,
+    chunk: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K6, written from the contract.
+
+    source, matched [B, N, 3]; good [B, N] bool; hypotheses R [B, H, 3, 3],
+    t [B, H, 3]. Returns counts [B, H] int32: the points with ``good`` and
+    ``res2 < thr2``, where ``m_i = ((R_i0*x + R_i1*y) + R_i2*z) + t_i`` and
+    ``res2 = ((dx*dx) + (dy*dy)) + (dz*dz)``, elementwise in exactly that
+    order (no matmul, so the counts equal the kernel's). The hypothesis
+    axis is walked in chunks so the [B, Hc, N] transient stays bounded.
+    """
+    B, n, _ = source.shape
+    H = R.shape[1]
+    if chunk is None:
+        chunk = max(1, min(H, (1 << 22) // max(1, B * n)))
+    x, y, z = (source[:, None, :, c] for c in range(3))       # [B, 1, N]
+    gd = good[:, None, :]
+    out = []
+    for h0 in range(0, H, chunk):
+        Rc, tc = R[:, h0 : h0 + chunk], t[:, h0 : h0 + chunk]  # [B, Hc, ...]
+        res2 = None
+        for i in range(3):
+            m = ((Rc[..., i, 0, None] * x + Rc[..., i, 1, None] * y)
+                 + Rc[..., i, 2, None] * z) + tc[..., i, None]   # [B, Hc, N]
+            d = m - matched[:, None, :, i]
+            res2 = d * d if res2 is None else res2 + d * d
+        out.append(((res2 < thr2) & gd).sum(dim=-1, dtype=torch.int32))
+    if not out:
+        return torch.zeros((B, 0), dtype=torch.int32, device=source.device)
+    return torch.cat(out, dim=1)
+
+
+def ransac_counts_batched(
+    source: torch.Tensor,
+    matched: torch.Tensor,
+    good: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    thr2: float,
+) -> torch.Tensor:
+    """K6 (see ``csrc/ransac_counts.cu``): inlier counts [B, H] int32 of
+    hypotheses (R [B, H, 3, 3], t [B, H, 3]) over the correspondences
+    source/matched [B, N, 3] with validity ``good`` [B, N]."""
+    _require(source.dim() == 3 and source.shape[2] == 3,
+             f"source must be [B, N, 3], got {tuple(source.shape)}")
+    B, n = source.shape[:2]
+    _require(matched.shape == source.shape,
+             f"matched must be {tuple(source.shape)}, got {tuple(matched.shape)}")
+    _require(good.shape == (B, n) and good.dtype == torch.bool,
+             f"good must be [B, N] bool, got {tuple(good.shape)} {good.dtype}")
+    _require(R.dim() == 4 and R.shape[0] == B and R.shape[2:] == (3, 3),
+             f"R must be [B, H, 3, 3], got {tuple(R.shape)}")
+    H = R.shape[1]
+    _require(t.shape == (B, H, 3), f"t must be [B, H, 3], got {tuple(t.shape)}")
+    _require(all(x.dtype == torch.float32 for x in (source, matched, R, t)),
+             "source, matched, R and t must be float32")
+    _require(all(x.device == source.device for x in (matched, good, R, t)),
+             "inputs must share a device")
+    if source.device.type == "cpu":
+        return ransac_counts_batched_plain(source, matched, good, R, t, thr2)
+    _require(source.device.type == "cuda", f"unsupported device {source.device}")
+    _require(all(x.is_contiguous() for x in (source, matched, good, R, t)),
+             "inputs must be contiguous")
+    _require(B < 65536 and B * max(n, H) * 9 < 2**31, "sizes out of range")
+    counts = torch.empty((B, H), dtype=torch.int32, device=source.device)
+    if B == 0 or H == 0:
+        return counts
+    if n == 0:
+        return counts.zero_()
+    lib = load_library()
+    dev = source.device
+    rc = lib.scl_ransac_counts_batched(
+        source.data_ptr(), matched.data_ptr(), good.data_ptr(), R.data_ptr(),
+        t.data_ptr(), counts.data_ptr(), B, n, H, float(thr2), dev.index or 0,
+        _stream(dev),
+    )
+    _check_launch(lib, rc, "ransac_counts_batched")
+    LAUNCHES["ransac_counts_batched"] += 1
+    return counts

@@ -17,8 +17,13 @@ Inter-robot: ``nearest_neighbors`` (kernel K3 on CUDA tensors),
 draws its minimal samples from a counter-based integer hash of (seed,
 attempt, hypothesis, point) instead of ``jax.random``: the same draws on
 the CPU and on the card, and a test can inject JAX's own samples.
-Point-to-plane ICP, ``ransac_align_batched`` (the fleet) and the
-fused-moments path are not ported yet (ROADMAP queues 1 and 2).
+
+Fleet: ``ransac_align_batched``, B verifications at once, its 1-NN through
+``_matches_batched`` (kernel K1) and its hypotheses scored by kernel K6
+(``kernels.ransac_counts_batched``) on CUDA tensors. Its uniforms come from
+the same counter hash, of (seed, step, lane, hypothesis, sample).
+Point-to-plane ICP and the fused-moments path are not ported yet (ROADMAP
+queues 1 and 2).
 """
 from __future__ import annotations
 
@@ -412,12 +417,15 @@ def ransac_samples(
 
 
 def _transform_each(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor):
-    """pts [N, 3] under each of H poses (R [H, 3, 3], t [H, 3]) -> [H, N, 3],
-    per coordinate in a fixed order (separate elementwise ops round alike
-    on every device, where a matmul's summation order is the library's)."""
-    x, y, z = (pts[None, :, None, c] for c in range(3))     # [1, N, 1]
-    Rc = [R[:, None, :, c] for c in range(3)]                # [H, 1, 3]
-    return ((Rc[0] * x + Rc[1] * y) + Rc[2] * z) + t[:, None, :]
+    """Points [..., N, 3] under poses (R [..., 3, 3], t [..., 3]), the
+    leading axes broadcast: pts [N, 3] under H poses gives [H, N, 3], lanes
+    [B, N, 3] under B poses give [B, N, 3]. Per coordinate in a fixed order,
+    ``((R_i0*x + R_i1*y) + R_i2*z) + t_i`` (separate elementwise ops round
+    alike on every device, where a matmul's summation order is the
+    library's; K6 uses the same order)."""
+    x, y, z = (pts[..., c : c + 1] for c in range(3))       # [..., N, 1]
+    Rc = [R[..., None, :, c] for c in range(3)]              # [..., 1, 3]
+    return ((Rc[0] * x + Rc[1] * y) + Rc[2] * z) + t[..., None, :]
 
 
 def _sq_norm3(d: torch.Tensor) -> torch.Tensor:
@@ -497,3 +505,118 @@ def ransac_align(
     n_corr = torch.clamp(corr_valid.sum(), min=1)
     ratio = num_inliers / n_corr
     return RansacResult(best_pose, ratio, num_inliers, ratio >= min_inlier_ratio)
+
+
+def ransac_uniforms(
+    B: int, num_hypotheses: int, sample_size: int, seed: int, step: int, device,
+) -> torch.Tensor:
+    """[B, H, sample_size] f32 uniforms in [0, 1) on a 2**-24 grid: the top
+    24 bits of a 32-bit hash of (seed, step, lane, hypothesis, sample), in
+    torch integer ops, so every device draws the same values."""
+    base = _hash32((_hash32(seed & _M32) ^ (step & _M32)) & _M32)
+    n = B * num_hypotheses * sample_size
+    ctr = torch.arange(n, dtype=torch.int64, device=device) & _M32
+    bits = _hash32(_hash32(ctr) ^ base) >> 8                      # 24 bits
+    u = bits.to(torch.float32) * (1.0 / (1 << 24))
+    return u.reshape(B, num_hypotheses, sample_size)
+
+
+def ransac_align_batched(
+    source: Cloud,
+    target: Cloud,
+    seed: int,
+    step: int,
+    active: torch.Tensor,
+    num_hypotheses: int = 256,
+    inlier_thresh: float = 0.25,
+    min_inlier_ratio: float = 0.45,
+    refine: bool = True,
+    uniforms: torch.Tensor | None = None,
+) -> RansacResult:
+    """B independent :func:`ransac_align` runs at once (the fleet's
+    inter-robot verification; see the JAX function for the reference
+    mapping).
+
+    Steps: the ungated 1-NN pass of every active lane (kernel K1; inactive
+    lanes get no correspondence); per lane ``num_hypotheses`` minimal
+    samples by the inverse CDF over the valid correspondences (a uniform
+    times the lane's count of them, then a searchsorted over their
+    cumulative count: with replacement, duplicates rejected by
+    :func:`triangles_ok`); closed-form triangle fits; scoring by inlier
+    count (kernel K6); the first best valid hypothesis, its inlier set,
+    and one weighted Kabsch refine over it, adopted when it keeps at least
+    as many inliers (never on a lane without a valid hypothesis).
+
+    source/target: Clouds [B, N, 3] / [B, M, 3]; active [B] bool. The
+    uniforms come from :func:`ransac_uniforms` with (``seed``, ``step``)
+    unless ``uniforms`` [B, H, 3] is given (a test passes JAX's own).
+    Inactive lanes return the identity with ``success=False``.
+    """
+    B, n = source.xyz.shape[:2]
+    dtype, dev = source.xyz.dtype, source.xyz.device
+    H = num_hypotheses
+    tgt = torch.where(target.mask[..., None], target.xyz, PAD_VALUE)
+    payload = torch.cat(
+        [tgt.transpose(-1, -2), target.mask[:, None, :].to(dtype)], dim=1
+    ).contiguous()                                               # [B, 4, M]
+    src = source.xyz.contiguous()
+    # big-but-finite gate: the correspondences are ungated; validity comes
+    # from the masks
+    _, _, matched, good = _matches_batched(
+        src, source.mask, payload, se3.identity((B,), dtype=dtype, device=dev),
+        active, 1e6,
+    )                                         # matched [B, N, 3], good [B, N]
+    matched = matched.contiguous()
+
+    cnt = torch.cumsum(good.to(torch.int32), dim=-1)               # [B, N]
+    n_good_pts = cnt[:, -1]
+    if uniforms is None:
+        uniforms = ransac_uniforms(B, H, 3, seed, step, dev)
+    u = uniforms.to(dtype) * torch.clamp(n_good_pts, min=1).to(dtype)[:, None, None]
+    samples = torch.searchsorted(
+        cnt.to(dtype).contiguous(), u.reshape(B, -1), right=True
+    ).reshape(B, H, 3)
+    samples = torch.clamp(samples, max=n - 1)       # lanes with n_good = 0
+    bidx = torch.arange(B, device=dev)
+    src_s = src[bidx[:, None, None], samples]                     # [B, H, 3, 3]
+    dst_s = matched[bidx[:, None, None], samples]
+    hyp = rigid_from_triangles(src_s, dst_s)                      # [B, H] poses
+    hyp_ok = triangles_ok(src_s) & triangles_ok(dst_s)
+
+    thr2 = inlier_thresh * inlier_thresh
+    counts = kernels.ransac_counts_batched(
+        src, matched, good, hyp.R.contiguous(), hyp.t.contiguous(), thr2
+    )
+    counts = torch.where(hyp_ok, counts, -1)
+    best = torch.argmax(counts, dim=-1)             # first maximum
+    any_valid = counts[bidx, best] >= 0
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    best_pose = se3.Pose(
+        torch.where(any_valid[:, None, None], hyp.R[bidx, best], eye3),
+        torch.where(any_valid[:, None], hyp.t[bidx, best], 0.0),
+    )
+
+    def inliers_of(pose):
+        moved = _transform_each(pose.R, pose.t, src)              # [B, N, 3]
+        return (_sq_norm3(moved - matched) < thr2) & good
+
+    best_inl = inliers_of(best_pose) & any_valid[:, None]
+    if refine:
+        w = best_inl.to(dtype)
+        refined = kabsch(src, matched, torch.clamp(w, min=1e-12))
+        inl_r = inliers_of(refined)
+        use_r = any_valid & (inl_r.sum(dim=-1) >= best_inl.sum(dim=-1))
+        best_pose = se3.Pose(
+            torch.where(use_r[:, None, None], refined.R, best_pose.R),
+            torch.where(use_r[:, None], refined.t, best_pose.t),
+        )
+        best_inl = torch.where(use_r[:, None], inl_r, best_inl)
+
+    num_inliers = best_inl.sum(dim=-1)
+    n_corr = torch.clamp(good.sum(dim=-1), min=1)
+    ratio = torch.where(active, num_inliers / n_corr, 0.0)
+    pose = se3.Pose(
+        torch.where(active[:, None, None], best_pose.R, eye3),
+        torch.where(active[:, None], best_pose.t, 0.0),
+    )
+    return RansacResult(pose, ratio, num_inliers, active & (ratio >= min_inlier_ratio))

@@ -3,28 +3,33 @@
 
 Splits one sequence (synthetic or KITTI) into N overlapping per-robot index
 ranges, the way the reference simulates several robots on one machine with
-namespaced bag replays, and runs N decentralized mappers that exchange
-descriptors and verify inter-robot loops over a bus:
+namespaced bag replays, and runs them one of three ways:
 
-- ``--transport local`` (default): the N mappers in one process over the
+- ``--transport local`` (default): N decentralized mappers in one process
+  that exchange descriptors and verify inter-robot loops over the
   in-process bus;
 - ``--transport tcp``: one process per robot (``run_robot.py``) over real
   sockets (``runtime/transport.py::TcpBus``). On one card the processes
-  share it.
+  share it;
+- ``--fleet``: centralized serving, every robot in one shared state
+  (``runtime/fleet.py::FleetMapper``): each step feeds one frame of every
+  robot, processes the staged keyframes as one fleet batch and runs the
+  throttled joint solve. It has no tcp transport.
 
     python -m scl_slam_tpu_torch.run_multi --robots 2 --frames 120
     python -m scl_slam_tpu_torch.run_multi --robots 2 --device cpu --config small.yaml
     python -m scl_slam_tpu_torch.run_multi --robots 2 --transport tcp
+    python -m scl_slam_tpu_torch.run_multi --robots 2 --fleet
 
 It runs on the GPU unless ``--device cpu`` is given, and raises when there
 is no card. The solve throttle reads the frame stamps (0.1 s apart), so a
 run does not depend on the machine's speed (the JAX runner reads the wall
 clock). The last line of its output is the JSON report (``robots``,
 ``mode``, ``frames``, ``intra_loops``, ``inter_loops``, ``wall_s``,
-``frames_per_s``, ``device``, ``output``, ``ate_rmse_m``). Not ported yet,
-and refused with exit code 2: ``--fleet`` (ROADMAP queue 1 item 14),
-``--respawn`` and ``--checkpoint-every`` (item 13: the checkpoint module);
-the trajectory figure is left out (item 18).
+``frames_per_s``, ``device``, ``output``, ``ate_rmse_m``; ``mode`` is
+``decentralized``, ``decentralized-tcp`` or ``fleet``). Not ported yet, and
+refused with exit code 2: ``--respawn`` and ``--checkpoint-every`` (item
+13: the checkpoint module); the trajectory figure is left out (item 18).
 """
 from __future__ import annotations
 
@@ -224,9 +229,9 @@ def _run_tcp(args) -> int:
 
 def _refuse(args) -> str | None:
     """The reason an option cannot run on the port yet, or None."""
-    if args.fleet:
-        return ("--fleet is not ported yet (ROADMAP queue 1 item 14: "
-                "runtime/fleet.py)")
+    if args.fleet and args.transport == "tcp":
+        return ("--fleet is a single-process serving mode; it has no tcp "
+                "transport (drop --transport tcp)")
     if args.respawn or args.checkpoint_every:
         return ("--respawn and --checkpoint-every need the checkpoint module, "
                 "which is not ported yet (ROADMAP queue 1 item 13: "
@@ -238,7 +243,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="scl_slam_tpu_torch multi-robot pipeline")
     add_dataset_args(p)
     p.add_argument("--fleet", action="store_true",
-                   help="centralized serving, one shared state (not ported yet)")
+                   help="centralized serving: one shared state for all robots "
+                   "(runtime/fleet.py) instead of N decentralized mappers")
     p.add_argument("--transport", choices=["local", "tcp"], default="local",
                    help="in-process bus (local) or one process per robot over "
                    "sockets (tcp)")
@@ -261,39 +267,22 @@ def main(argv=None):
 
     import torch
 
-    from .runtime import Mapper
-    from .runtime.transport import LocalBus
-
     R = args.robots
     get_scan, get_pose, n = build_dataset(args)
     splits = make_splits(n, R, args.overlap)
-    bus = LocalBus()
-    mappers = []
-    for r in range(R):
-        m = Mapper(make_cfg(args, r), device=args.device)
-        m.attach_bus(bus)
-        mappers.append(m)
-
     t0 = time.perf_counter()
-    inter_loops = intra_loops = 0
-    for step in range(max(len(s) for s in splits)):
-        for r in range(R):
-            if step >= len(splits[r]):
-                continue
-            info = feed(mappers[r], splits[r][step], get_scan, get_pose)
-            if info is not None:
-                intra_loops += bool(info.get("loop"))
-                inter_loops += bool(info.get("inter_loop"))
-    for m in mappers:
-        m.optimize()
+    if args.fleet:
+        mapper0, intra_loops, inter_loops = _run_fleet(args, splits, get_scan, get_pose)
+    else:
+        mapper0, intra_loops, inter_loops = _run_local(args, splits, get_scan, get_pose)
     if args.device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
-    mappers[0].save_trajectories(args.output)
+    mapper0.save_trajectories(args.output)
     report = {
         "robots": R,
-        "mode": "decentralized",
+        "mode": "fleet" if args.fleet else "decentralized",
         "frames": n,
         "intra_loops": intra_loops,
         "inter_loops": inter_loops,
@@ -302,9 +291,60 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu",
         "output": args.output,
     }
-    report.update(report_view(mappers[0], get_pose, R))
+    report.update(report_view(mapper0, get_pose, R))
     print(json.dumps(report))
     return 0
+
+
+def _run_local(args, splits, get_scan, get_pose):
+    """N decentralized mappers over the in-process bus, fed in turn.
+    Returns (robot 0's mapper, intra loops, inter loops)."""
+    from .runtime import Mapper
+    from .runtime.transport import LocalBus
+
+    bus = LocalBus()
+    mappers = []
+    for r in range(args.robots):
+        m = Mapper(make_cfg(args, r), device=args.device)
+        m.attach_bus(bus)
+        mappers.append(m)
+    inter_loops = intra_loops = 0
+    for step in range(max(len(s) for s in splits)):
+        for r in range(args.robots):
+            if step >= len(splits[r]):
+                continue
+            info = feed(mappers[r], splits[r][step], get_scan, get_pose)
+            if info is not None:
+                intra_loops += bool(info.get("loop"))
+                inter_loops += bool(info.get("inter_loop"))
+    for m in mappers:
+        m.optimize()
+    return mappers[0], intra_loops, inter_loops
+
+
+def _run_fleet(args, splits, get_scan, get_pose):
+    """One ``FleetMapper`` for every robot: each step stages one frame of
+    every robot, processes the batch and runs the throttled solve on the
+    step's latest frame stamp. Returns (the fleet, intra loops, inter
+    loops)."""
+    from .runtime import FleetMapper
+
+    fleet = FleetMapper(make_cfg(args, 0), device=args.device)
+    inter_loops = intra_loops = 0
+    for step in range(max(len(s) for s in splits)):
+        stamps = []
+        for r in range(args.robots):
+            if step >= len(splits[r]):
+                continue
+            k = splits[r][step]
+            stamps.append(0.1 * k)
+            fleet.add_robot_frame(r, pose_of(get_pose(k)), get_scan(k), stamp=0.1 * k)
+        for ev in fleet.step():
+            intra_loops += "loop" in ev
+            inter_loops += "inter_loop" in ev
+        fleet.spin(now=max(stamps))
+    fleet.optimize()
+    return fleet, intra_loops, inter_loops
 
 
 if __name__ == "__main__":

@@ -31,10 +31,15 @@ keyframe and, on a hit, the robot that owns the match verifies it by RPC:
 SVD (kernel K3 for the 1-NN) against the requester's map-frame cloud. A
 verified factor joins both robots' loop queues (``_queue_loop``).
 
+When a robot's keyframe block is full, the oldest redundant keyframes are
+evicted and the block compacted (``runtime/eviction.py``, host numpy); the
+evicted poses are archived for ``full_trajectory``. The centralized fleet
+(``runtime/fleet.py``) shares every stage function here.
+
 The state is updated in place (the JAX steps donate their state). What is
 not ported yet raises ``NotImplementedError`` naming the ROADMAP item it
-waits for: eviction, checkpoints, PCM, the mesh solve, the voxel storage
-modes, the C++ host-descriptor path and int16 transfer.
+waits for: checkpoints, PCM, the mesh solve, the voxel storage modes, the
+C++ host-descriptor path and int16 transfer.
 """
 from __future__ import annotations
 
@@ -210,12 +215,13 @@ def _ingest_prepared_block(
 
 
 def _gather_submap(
-    state: MapperState, center_slots, robot: int, cfg: SlamConfig, count
+    state: MapperState, center_slots, robot, cfg: SlamConfig, count
 ):
     """±near_keyframes submap around each of B slots, in the map frame.
 
-    Gathers 2*near+1 clouds per lane (clipped to the robot's chain as it
-    stood at ``count`` keyframes), transforms each by its optimized pose,
+    ``robot`` is the robot of every lane, or one per lane ([B], a fleet
+    batch). Gathers 2*near+1 clouds per lane (clipped to the lane robot's
+    chain as it stood at ``count`` [B] keyframes), transforms each by its optimized pose,
     and keeps a per-cloud prefix sized to fill ``submap_capacity`` (stored
     clouds are scramble-ordered, so a prefix is a uniform subsample). A
     plain index gather: the JAX one-hot matmul was a TPU workaround. The
@@ -224,12 +230,11 @@ def _gather_submap(
     K = cfg.keyframe.max_keyframes
     near = cfg.loop.near_keyframes
     dev = state.kf_xyz.device
-    lo = robot * K
+    lo = torch.as_tensor(robot, device=dev).long().reshape(-1, 1) * K
     offs = torch.arange(-near, near + 1, device=dev)
-    hi = lo + torch.clamp(count - 1, min=0)
+    hi = lo + torch.clamp(torch.as_tensor(count, device=dev).long().reshape(-1, 1) - 1, min=0)
     slots = torch.minimum(
-        torch.clamp(center_slots.long()[:, None] + offs[None], min=lo),
-        hi.long()[:, None],
+        torch.maximum(center_slots.long()[:, None] + offs[None], lo), hi
     )                                                        # [B, W]
     B, W = slots.shape
     per = max(1, cfg.loop.submap_capacity // W)
@@ -266,12 +271,13 @@ def _yaw_seed_pose(pose: se3.Pose, yaw: torch.Tensor) -> se3.Pose:
 
 
 def _intra_verify_inputs(
-    state: MapperState, slots, match_slots, yaws, robot: int, cfg: SlamConfig,
+    state: MapperState, slots, match_slots, yaws, robot, cfg: SlamConfig,
     count,
 ):
     """ICP inputs for B intra-loop verifications: (current keyframe cloud
-    prefix, ±near submap target, yaw-seeded start pose). ``count`` [B] is
-    each frame's keyframe count at its sequential detection time."""
+    prefix, ±near submap target, yaw-seeded start pose). ``robot`` is one
+    robot or [B] robots; ``count`` [B] is each frame's keyframe count at
+    its sequential detection time."""
     n_src = min(cfg.loop.icp_source_points, cfg.keyframe.points_per_keyframe)
     sl = slots.long()
     cur_cloud = pc.Cloud(
@@ -781,8 +787,9 @@ class Mapper:
     :meth:`detect_inter_loop`, :meth:`serve_verification`) and the exports.
     The entry point runs on the card: ``device`` defaults to ``"cuda"`` and
     the constructor raises where there is none, unless the caller asks for
-    ``device="cpu"`` (where every kernel takes its plain version). Eviction
-    and checkpoints are not ported yet (ROADMAP queue 1).
+    ``device="cpu"`` (where every kernel takes its plain version). A full
+    keyframe block is compacted by eviction (:meth:`_compact`); checkpoints
+    are not ported yet (ROADMAP queue 1).
 
     Threads: with a socket bus, peer descriptors arrive and verification
     requests are served on the bus's threads. Every state-changing entry
@@ -824,12 +831,20 @@ class Mapper:
         # the inter query's inputs changed since its last dispatch: a new
         # own keyframe, a peer descriptor, or a verification that failed
         self._inter_dirty = False
+        # fixed-lag archive: evicted keyframes' (index, stamp, pose at
+        # eviction) per robot, merged back in by full_trajectory
+        self._evicted: dict[int, list] = {}
 
     # -- keyframe gate (reference saveFrame, distributedMapping.h:755-780) --
     def should_add_keyframe(self, pose) -> bool:
-        if self._last_kf_pose is None:
+        return self._moved_enough(self._last_kf_pose, pose)
+
+    def _moved_enough(self, last, pose) -> bool:
+        """The keyframe gate on the host: ``pose`` is ``distance_threshold``
+        or ``angle_threshold`` away from ``last`` (or there is no last)."""
+        if last is None:
             return True
-        R0, t0 = to_numpy(self._last_kf_pose.R), to_numpy(self._last_kf_pose.t)
+        R0, t0 = to_numpy(last.R), to_numpy(last.t)
         R1, t1 = to_numpy(pose.R), to_numpy(pose.t)
         dist = float(np.linalg.norm(t1 - t0))
         cos_ang = (np.trace(R0.T @ R1) - 1.0) * 0.5
@@ -839,7 +854,7 @@ class Mapper:
             or ang >= self.cfg.keyframe.angle_threshold
         )
 
-    def _gate(self, poses, n: int, apply_gate: bool) -> tuple[list, list]:
+    def _gate_frames(self, poses, n: int, apply_gate: bool) -> tuple[list, list]:
         accepted, sel = [], []
         for i in range(n):
             take = (not apply_gate) or self.should_add_keyframe(poses[i])
@@ -897,7 +912,7 @@ class Mapper:
         n = len(scans)
         if stamps is None:
             stamps = [0.0] * n
-        accepted, sel = self._gate(poses, n, apply_gate)
+        accepted, sel = self._gate_frames(poses, n, apply_gate)
         if not sel:
             return {"accepted": accepted, "loops": [], "keyframes": self._keyframes}
         self._ensure_capacity(len(sel))
@@ -918,18 +933,28 @@ class Mapper:
         if int(self.state.loop_queue.count) + k > self.cfg.loop.queue_capacity:
             self.optimize()
 
+    def _compact(self, robot: int) -> None:
+        """Evict and compact one robot's block (``runtime/eviction.py``),
+        archiving the evicted keyframes."""
+        from . import eviction
+
+        with self._write_lock:
+            self.state, records = eviction.compact_robot(self.state, self.cfg, robot)
+            self._evicted.setdefault(robot, []).extend(records)
+
     def _ensure_capacity(self, k: int, robot: int | None = None) -> None:
-        """The JAX mapper evicts keyframes until ``k`` more fit the
-        robot's block (own by default); eviction is not ported yet."""
+        """Evict (compact) until ``k`` more keyframes fit the robot's block
+        (own by default). An impossible request and a compaction that frees
+        nothing raise instead of spinning."""
         robot = self.robot if robot is None else robot
         K = self.cfg.keyframe.max_keyframes
         if k > K:
             raise ValueError(f"batch of {k} keyframes exceeds capacity {K}")
-        if int(self.state.counts[robot]) + k > K:
-            raise NotImplementedError(
-                "the keyframe block is full and needs eviction "
-                "(ROADMAP queue 1 item 9: eviction)"
-            )
+        while int(self.state.counts[robot]) + k > K:
+            before = int(self.state.counts[robot])
+            self._compact(robot)
+            if int(self.state.counts[robot]) >= before:
+                raise RuntimeError("eviction could not free capacity for the batch")
 
     @_locked
     def replay(
@@ -963,7 +988,7 @@ class Mapper:
         n = len(scans)
         if stamps is None:
             stamps = [0.0] * n
-        accepted, sel = self._gate(poses, n, apply_gate)
+        accepted, sel = self._gate_frames(poses, n, apply_gate)
         if not sel:
             return {"accepted": accepted, "loops": [], "keyframes": self._keyframes}
         B, R = batch, chunk_batches
@@ -1118,8 +1143,7 @@ class Mapper:
     ) -> bool:
         """In-order peer descriptor ingestion (poses with ``.R`` / ``.t``,
         wire a flat float vector). Returns False when the descriptor is
-        dropped as out of order. A full block raises: eviction is not
-        ported yet."""
+        dropped as out of order. A full peer block is compacted first."""
         if index != self.next_index(robot):
             return False
         self._ensure_capacity(1, robot)
@@ -1321,15 +1345,25 @@ class Mapper:
         return self.trajectory_with_stamps(robot)[1]
 
     def full_trajectory(self, robot: int | None = None):
-        """(poses [N, 4, 4], stamps [N]) in keyframe-index order. Without
-        eviction (not ported yet) every keyframe is resident."""
+        """(poses [N, 4, 4], stamps [N]) of every keyframe, evicted ones
+        included, in keyframe-index order. Evicted poses are frozen at their
+        estimate when evicted (fixed-lag semantics); resident poses are
+        current."""
         robot = self.robot if robot is None else robot
         K = self.cfg.keyframe.max_keyframes
-        n = int(self.state.counts[robot])
-        idx = to_numpy(self.state.desc_db.index[robot * K : robot * K + n])
-        poses, stamps = self.trajectory_with_stamps(robot)
-        order = np.argsort(idx, kind="stable")
-        return poses[order], stamps[order]
+        with self._write_lock:
+            st = self.state
+            n = int(st.counts[robot])
+            idx = to_numpy(st.desc_db.index[robot * K : robot * K + n])
+            poses = self._traj_from(st, robot)
+            stamps = to_numpy(st.stamps[robot * K : robot * K + n])
+            archived = list(self._evicted.get(robot, []))
+        entries = [(r["index"], r["stamp"], r["pose"]) for r in archived]
+        entries += [(int(idx[k]), float(stamps[k]), poses[k]) for k in range(n)]
+        entries.sort(key=lambda e: e[0])
+        if not entries:
+            return np.zeros((0, 4, 4)), np.zeros((0,))
+        return np.stack([e[2] for e in entries]), np.asarray([e[1] for e in entries])
 
     def save_trajectories(self, directory: str):
         """TUM + KITTI export for every robot with keyframes."""

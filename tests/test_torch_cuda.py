@@ -7,7 +7,7 @@ options):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts= -q
 
-The ``cuda`` tests launch the CUDA kernels (K1, K2, K3, K4) and hold them against their
+The ``cuda`` tests launch the CUDA kernels (K1, K2, K3, K4, K6) and hold them against their
 plain PyTorch versions on the card; they skip without one. The input
 makers here are shared with ``test_torch_kernels.py``, which holds the
 plain versions against the JAX package.
@@ -99,6 +99,46 @@ def image_inputs(seed, B, n, R=20, S=60):
     return z, ring, sector, valid
 
 
+def _rodrigues(w):
+    th = np.linalg.norm(w)
+    if th == 0:
+        return np.eye(3)
+    k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+
+
+def ransac_inputs(seed, B, H, N, thr=0.25):
+    """K6 inputs. Lane b's matched points are its source points under a
+    random pose plus noise, and its hypotheses are that pose perturbed, so
+    each hypothesis has inliers and outliers; ~10% of the points are not
+    good and lane 1 has no good point. Planted on the threshold: lane 0's
+    source is an integer grid, its hypothesis 0 the identity, and a
+    quarter of its matched points sit exactly ``thr`` away (res2 == thr2
+    exactly: not inliers), a quarter just inside. Returns (source,
+    matched, good, R [B, H, 3, 3], t [B, H, 3], thr2)."""
+    rng = np.random.RandomState(seed)
+    src = rng.uniform(-30, 30, (B, N, 3)).astype(np.float32)
+    src[0] = np.round(src[0])
+    R = np.empty((B, H, 3, 3), np.float32)
+    t = np.empty((B, H, 3), np.float32)
+    matched = np.empty_like(src)
+    for b in range(B):
+        Rb, tb = _rodrigues(rng.normal(0, 0.3, 3)), rng.uniform(-5, 5, 3)
+        matched[b] = src[b] @ Rb.T + tb + rng.normal(0, 0.2, (N, 3))
+        for h in range(H):
+            R[b, h] = _rodrigues(rng.normal(0, 0.01, 3)) @ Rb
+            t[b, h] = tb + rng.normal(0, 0.1, 3)
+    R[0, 0], t[0, 0] = np.eye(3), 0.0
+    q = N // 4
+    matched[0, :q] = src[0, :q] + np.float32([thr, 0, 0])
+    matched[0, q : 2 * q] = src[0, q : 2 * q] + np.float32([thr * (1 - 2.0**-10), 0, 0])
+    good = rng.rand(B, N) > 0.1
+    if B > 1:
+        good[1] = False
+    thr2 = thr * thr
+    return src, matched.astype(np.float32), good, R, t, thr2
+
+
 def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     kernels.reset_launch_counts()
     q, payload, active = nn_inputs(5, 3, 64, 256)
@@ -115,8 +155,13 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     d, idx = kernels.nearest_neighbors(torch.from_numpy(q), torch.from_numpy(payload[:3].T.copy()))
     assert torch.equal(d, kernels.nearest_neighbors_plain(torch.from_numpy(q), torch.from_numpy(payload[:3].T.copy()))[0])
     assert idx.dtype == torch.int32
+    args = [torch.from_numpy(x) for x in ransac_inputs(9, 3, 5, 40)[:5]]
+    counts = kernels.ransac_counts_batched(*args, 0.0625)
+    assert counts.dtype == torch.int32 and counts.shape == (3, 5)
+    assert torch.equal(counts, kernels.ransac_counts_batched_plain(*args, 0.0625))
     assert kernels.LAUNCHES == {
         "nn_select_batched": 0, "max_image": 0, "nn_select": 0, "nearest_neighbors": 0,
+        "ransac_counts_batched": 0,
     }
 
 
@@ -136,6 +181,15 @@ def test_wrappers_reject_bad_inputs():
         kernels.nearest_neighbors(q[0], torch.zeros(3, 16))
     with pytest.raises(ValueError):  # K3: float64
         kernels.nearest_neighbors(q[0].double(), torch.zeros(16, 3, dtype=torch.float64))
+    src = torch.zeros(2, 8, 3)
+    good = torch.ones(2, 8, dtype=torch.bool)
+    R, t = torch.zeros(2, 4, 3, 3), torch.zeros(2, 4, 3)
+    with pytest.raises(ValueError):  # K6: good not bool
+        kernels.ransac_counts_batched(src, src, good.float(), R, t, 1.0)
+    with pytest.raises(ValueError):  # K6: matched of another shape
+        kernels.ransac_counts_batched(src, src[:, :4], good, R, t, 1.0)
+    with pytest.raises(ValueError):  # K6: t of another hypothesis count
+        kernels.ransac_counts_batched(src, src, good, R, t[:, :3], 1.0)
     z = torch.zeros(1, 16)
     with pytest.raises(ValueError):
         kernels.max_image(z, torch.zeros(1, 16, dtype=torch.int64), torch.zeros(1, 16, dtype=torch.int32), torch.ones(1, 16, dtype=torch.bool), 20, 60)
@@ -210,3 +264,32 @@ def test_k3_cuda_kernel_matches_plain(cuda_device):
     assert kernels.LAUNCHES["nearest_neighbors"] == len(shapes)
     d, idx = kernels.nearest_neighbors(args[0], args[1][:0])
     assert torch.isinf(d).all() and (idx == 0).all()
+
+
+@pytest.mark.cuda
+def test_k6_cuda_kernel_matches_plain(cuda_device):
+    """Counts equal to the plain version's at the fleet's shape (16 lanes x
+    256 hypotheses x 1,024 points), at a full keyframe (4,096 points) and
+    at ragged sizes, with points planted exactly on the threshold and a
+    lane without a good point."""
+    kernels.reset_launch_counts()
+    shapes = ((16, 256, 1024), (16, 256, 4096), (3, 37, 1000), (2, 1, 1))
+    for B, H, N in shapes:
+        src, matched, good, R, t, thr2 = ransac_inputs(B + H + N, B, H, N)
+        args = [torch.from_numpy(x).to(cuda_device) for x in (src, matched, good, R, t)]
+        counts = kernels.ransac_counts_batched(*args, thr2)
+        ref = kernels.ransac_counts_batched_plain(*args, thr2)
+        torch.cuda.synchronize()
+        assert torch.equal(counts, ref)
+        if B > 1:
+            assert (counts[1] == 0).all()
+        if N >= 4:
+            # the identity hypothesis on lane 0's first half: the points
+            # exactly on the threshold are out, those just inside are in
+            q = N // 4
+            half = kernels.ransac_counts_batched(
+                *(a[:1, : 2 * q].contiguous() for a in args[:3]),
+                args[3][:1, :1].contiguous(), args[4][:1, :1].contiguous(), thr2,
+            )
+            assert int(half[0, 0]) == int(good[0, q : 2 * q].sum()) > 0
+    assert kernels.LAUNCHES["ransac_counts_batched"] == 2 * len(shapes) - 1

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K4 of the PyTorch port against the JAX package.
+"""Kernels K1, K2, K4 and K6 of the PyTorch port against the JAX package.
 
 On the CPU the port's wrappers run their plain PyTorch versions; those
 are held here against the Pallas kernels in interpret mode (as
@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from scl_slam_tpu.ops import pallas_kernels as pk
 from scl_slam_tpu.ops.pointcloud import scatter_max_image as jax_scatter_max_image
 from scl_slam_tpu_torch.ops import kernels
-from test_torch_cuda import TIE_ATOL, image_inputs, nn_inputs, nn_solo_inputs
+from test_torch_cuda import TIE_ATOL, image_inputs, nn_inputs, nn_solo_inputs, ransac_inputs
 
 torch.set_num_threads(2)
 
@@ -210,3 +210,88 @@ def test_k4_plain_chunking_no_target_and_nan():
     assert torch.equal(d[:5], d_all[:5]) and torch.equal(sel[:, 6:], sel_all[:, 6:])
     d, sel = kernels.nn_select(args[0], args[1][:, :0])
     assert torch.isinf(d).all() and sel.shape == (8, 100) and (sel == 0).all()
+
+
+def _ransac_res2_numpy(src, matched, R, t):
+    """res2 [B, H, N] of the K6 contract in numpy, every step rounded to
+    f32 in the contract's order."""
+    x, y, z = (src[:, None, :, c] for c in range(3))
+    res2 = np.zeros(R.shape[:2] + src.shape[1:2], np.float32)
+    for i in range(3):
+        m = ((R[..., i, 0, None] * x + R[..., i, 1, None] * y) + R[..., i, 2, None] * z) + t[..., i, None]
+        d = m - matched[:, None, :, i]
+        res2 = res2 + d * d
+    return res2
+
+
+def _jax_slab_counts(src, matched, good, R, t, thr2):
+    """The XLA scoring slab of ``registration.ransac_align_batched`` (its
+    ``chunk_counts``, one chunk), as the JAX package runs it on the CPU."""
+    sx, sy, sz = (jnp.asarray(src[..., i]) for i in range(3))
+    Rc, tc, mt = jnp.asarray(R), jnp.asarray(t), jnp.asarray(matched)
+
+    @jax.jit
+    def counts():
+        res2 = 0.0
+        for i in range(3):
+            mi = (
+                Rc[..., i, 0][:, :, None] * sx[:, None, :]
+                + Rc[..., i, 1][:, :, None] * sy[:, None, :]
+                + Rc[..., i, 2][:, :, None] * sz[:, None, :]
+                + tc[..., i][:, :, None]
+            )
+            res2 = res2 + jnp.square(mi - mt[..., i][:, None, :])
+        return jnp.sum((res2 < thr2) & jnp.asarray(good)[:, None, :], axis=-1).astype(jnp.int32)
+
+    return np.asarray(counts())
+
+
+def test_k6_plain_matches_contract_pallas_interpret_and_slab():
+    """K6's plain version equals the contract computed in numpy. Against the
+    Pallas kernel in interpret mode and against the JAX package's XLA slab
+    the counts are equal, or differ by at most the number of good points
+    whose res2 lies within 4 ulp of thr2 (XLA:CPU may contract the
+    transform's multiply-adds, which the TPU kernel and the CUDA kernel do
+    not): the test counts those points per hypothesis. The planted
+    on-threshold points (res2 == thr2 exactly) are out on every side."""
+    B, H, N = 3, 16, 256  # the Pallas kernel needs H % 8 == 0, N % 128 == 0
+    src, matched, good, R, t, thr2 = ransac_inputs(21, B, H, N)
+    counts = kernels.ransac_counts_batched(
+        *(torch.from_numpy(x) for x in (src, matched, good, R, t)), thr2
+    ).numpy()
+    res2 = _ransac_res2_numpy(src, matched, R, t)
+    contract = ((res2 < np.float32(thr2)) & good[:, None, :]).sum(-1)
+    np.testing.assert_array_equal(counts, contract)
+    assert counts.dtype == np.int32 and (counts[1] == 0).all()
+    q = N // 4
+    assert (res2[0, 0, :q] == np.float32(thr2)).all() and (res2[0, 0, q : 2 * q] < thr2).all()
+    assert counts[0].max() > 0 and counts[2].min() > 0 and (counts[2] < good[2].sum()).all()
+    ulp = np.spacing(np.float32(thr2))
+    near = ((np.abs(res2 - np.float32(thr2)) <= 4 * ulp) & good[:, None, :]).sum(-1)
+    near[0, 0] = 0  # the identity rows are exact on every side
+
+    src4 = np.concatenate([np.swapaxes(src, 1, 2), good[:, None].astype(np.float32)], 1)
+    mt4 = np.concatenate([np.swapaxes(matched, 1, 2), np.zeros((B, 1, N), np.float32)], 1)
+    rows = np.zeros((B, H, 128), np.float32)
+    rows[..., :9] = R.reshape(B, H, 9)
+    rows[..., 9:12] = t
+    pallas = np.asarray(pk.ransac_counts_batched_pallas(
+        jnp.asarray(src4), jnp.asarray(mt4), jnp.asarray(rows), thr2, interpret=True
+    ))
+    slab = _jax_slab_counts(src, matched, good, R, t, thr2)
+    for ref in (pallas, slab):
+        assert (np.abs(counts - ref) <= near).all(), (counts - ref, near)
+        assert ref[0, 0] == counts[0, 0]
+
+
+def test_k6_plain_chunking_and_edges():
+    """Any hypothesis chunk gives the same counts; H = 0 and N = 0 give
+    empty and zero counts."""
+    args = [torch.from_numpy(x) for x in ransac_inputs(5, 2, 13, 300)[:5]]
+    full = kernels.ransac_counts_batched_plain(*args, 0.0625, chunk=13)
+    for chunk in (1, 4, 7):
+        assert torch.equal(kernels.ransac_counts_batched_plain(*args, 0.0625, chunk=chunk), full)
+    src, matched, good, R, t = args
+    assert kernels.ransac_counts_batched(src, matched, good, R[:, :0], t[:, :0], 1.0).shape == (2, 0)
+    empty = kernels.ransac_counts_batched(src[:, :0], matched[:, :0], good[:, :0], R, t, 1.0)
+    assert empty.shape == (2, 13) and (empty == 0).all()

@@ -167,8 +167,8 @@ def test_gate_and_unported_paths_raise():
         m.replay(poses, scans, host_descriptors=True)
     with pytest.raises(ValueError):
         m.replay(poses, scans, transfer="f16")
-    with pytest.raises(NotImplementedError):  # eviction
-        m._ensure_capacity(cfg.keyframe.max_keyframes)
+    with pytest.raises(ValueError):  # more than a block: eviction cannot help
+        m._ensure_capacity(cfg.keyframe.max_keyframes + 1)
     # a batch that could overflow the loop queue drains it (and solves)
     # first; it used to raise
     m._ensure_queue_headroom(cfg.loop.queue_capacity + 1)

@@ -324,7 +324,8 @@ def test_failed_verification_rpc_is_a_missed_loop(world, monkeypatch, exc):
 
 def test_peer_ingest_in_order_only_and_full_block_raises():
     """Out-of-order peer descriptors are dropped (the in-order chain); a
-    peer ingest into a full block raises, naming eviction."""
+    peer ingest into a full block compacts the block first (eviction),
+    and the chain's indices go on counting."""
     cfg = _cfg(0)
     m = M.Mapper(cfg, "cpu")
     wire = np.zeros(20 * 60, np.float32)
@@ -334,8 +335,11 @@ def test_peer_ingest_in_order_only_and_full_block_raises():
     assert int(m.state.counts[1]) == 1 and m.next_index(1) == 1 and m.next_index(0) == 0
     for i in range(1, cfg.keyframe.max_keyframes):
         assert m.ingest_peer_descriptor(1, i, eye, eye, wire)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        m.ingest_peer_descriptor(1, cfg.keyframe.max_keyframes, eye, eye, wire)
+    K = cfg.keyframe.max_keyframes
+    assert m.ingest_peer_descriptor(1, K, eye, eye, wire)
+    assert int(m.state.counts[1]) <= K and m.next_index(1) == K + 1
+    assert len(m._evicted[1]) == K + 1 - int(m.state.counts[1])
+    assert len(m.full_trajectory(1)[0]) == K + 1
 
 
 def test_inter_detect_freshness_gate(world, monkeypatch):
