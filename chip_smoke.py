@@ -83,18 +83,47 @@ Phases (any failure raises, and the script exits non-zero):
    tolerance;
 17. eviction on the card: a fleet at 8 keyframes a robot and a replay past
    its capacity compact their blocks, keep the protocol indices monotone
-   and export every keyframe through ``full_trajectory``.
+   and export every keyframe through ``full_trajectory``;
+18. K5 (one fused ICP iteration -> 18 Kabsch moment sums), both bodies,
+   against its plain version at the bench's two ICP stage shapes (32 x
+   1,024 x 8,192 and 32 x 256 x 2,048, 24 of 32 lanes active): the counts
+   equal, every sum within 2e-6 of its terms' absolute mass of their exact
+   sum, inactive lanes zero, mineq == argmin on tie-free inputs; times;
+19. K7 (batched 1-NN index) and K1's argmin body against their plain
+   versions at 32 x 1,024 x 8,192 and the fleet RANSAC's 16 x 1,024 x
+   8,192, with planted exact ties: d2, index and selection bit-equal, K7 +
+   one gather equal to K1-argmin; times;
+20. K8 (K1's argmin contract by the expanded form) at 32 x 1,024 x 8,192 on
+   recentred coordinates: bit-equal to its plain version; against K1 at
+   least 99% identical winners, each winner's exact d2 within 5e-3 of
+   K1's; times;
+21. phase 5's replay under each batched-ICP switch (default, ``FUSED_ICP``,
+   ``NN_INDEX``, ``MXU_NN``, ``SELECT_VARIANT="argmin"``): a warm-up, an
+   untimed counting run, 5 timed runs (median frames/s and every run);
+   each must launch its kernel (K5 and no K1; K7 and no K1; K8, and K1 for
+   the exact final pass; K1's argmin body) and pass phase 5's state checks;
+22. the revisit workload at 4,096-point submaps under each switch on the
+   card: the default must close loops, and ``FUSED_ICP``, ``NN_INDEX`` and
+   argmin must make its loop decisions, matched indices and queue
+   endpoints, with z_t within 5e-3 m but for loops whose ICP lane ended at
+   the stall exit (within its 1e-2 m bound); ``MXU_NN``'s loops are
+   printed beside the default's; the fused run also on the CPU (the same
+   checks against the card's); then the fleet bench's RANSAC under
+   ``NN_INDEX`` (K7) must equal the argmin run and the default's attempts
+   and successes.
 
 Kernel times are CUDA events around replays of a CUDA graph of the call
 (device time without the host's launch cost), beside the eager call's
 time; each kernel's bound is the larger of its bytes over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (the H100 SXM data sheet at 700 W),
-counted from this run's shapes. The line before the last is a JSON object
+counted from this run's shapes (9 operations a query-target pair for K1,
+K3, K4, K5, K7 and K8). The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``. This script imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -435,56 +464,86 @@ def kitti_velodyne_cfg():
     )
 
 
-def phase_slice(torch, kernels) -> dict:
-    """Phase 5; returns the kernel launch counts of the first timed run."""
-    from scl_slam_tpu_torch.geometry import se3
-    from scl_slam_tpu_torch.runtime import mapper as M
+class BenchReplay:
+    """The bench workload of phase 5 (bench.py's pipeline workload), kept
+    for phase 21: B = 32 lanes x R = 6 batches of 65,536-point scans."""
 
-    cfg = bench_cfg()
     B, R = 32, 6
-    n = B * R
-    n_pts = cfg.keyframe.raw_points_capacity
-    t0 = time.perf_counter()
-    scans = bench_scans(n, n_pts, seed=0)
-    eye = np.eye(3, dtype=np.float32)
-    poses = [se3.Pose(eye, np.float32([1.0 * k, 0.0, 0.0])) for k in range(n)]
-    stamps = [0.0] * n
-    log(f"[5] generated {n} bench scans in {time.perf_counter() - t0:.1f} s")
 
-    def run():
-        m = M.Mapper(cfg)  # the card by default
+    def __init__(self, torch):
+        from scl_slam_tpu_torch.geometry import se3
+
+        self.torch = torch
+        self.cfg = bench_cfg()
+        self.n = n = self.B * self.R
+        self.n_pts = self.cfg.keyframe.raw_points_capacity
+        t0 = time.perf_counter()
+        self.scans = bench_scans(n, self.n_pts, seed=0)
+        eye = np.eye(3, dtype=np.float32)
+        self.poses = [se3.Pose(eye, np.float32([1.0 * k, 0.0, 0.0])) for k in range(n)]
+        self.stamps = [0.0] * n
+        self.gen_s = time.perf_counter() - t0
+
+    def run(self):
+        """One ``Mapper.replay`` of the workload on a fresh Mapper, ended by a
+        synchronize: (mapper, its output, seconds)."""
+        from scl_slam_tpu_torch.runtime import mapper as M
+
+        torch = self.torch
+        m = M.Mapper(self.cfg)  # the card by default
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = m.replay(poses, scans, stamps, apply_gate=False, batch=B, chunk_batches=R)
+        out = m.replay(self.poses, self.scans, self.stamps, apply_gate=False,
+                       batch=self.B, chunk_batches=self.R)
         torch.cuda.synchronize()
         return m, out, time.perf_counter() - t
 
-    run()  # warm-up
-    kernels.reset_launch_counts()
-    m, out, dt = run()
-    launches = dict(kernels.LAUNCHES)
-    # four more timed runs for the spread (fresh Mapper each)
-    times = [dt] + [run()[2] for _ in range(4)]
+    def timed(self, kernels):
+        """A warm-up, an untimed counting run, then 5 timed runs. Returns
+        (launches, mapper and output of the counting run, run seconds)."""
+        self.run()
+        kernels.reset_launch_counts()
+        m, out, _ = self.run()
+        launches = dict(kernels.LAUNCHES)
+        return launches, m, out, [self.run()[2] for _ in range(5)]
+
+    def check_state(self, m, out) -> int:
+        """Phase 5's state checks; returns the loops closed."""
+        torch, n = self.torch, self.n
+        loops = sum(1 for x in out["loops"] if x)
+        st = m.state
+        traj = m.trajectory()
+        checks = {
+            "keyframes": int(st.counts[0]) == n == out["keyframes"],
+            "edges": int(st.graph.num_edges) == n - 1,
+            "queue": int(st.loop_queue.count) == loops,
+            "finite": bool(np.isfinite(traj).all()) and traj.shape == (n, 4, 4),
+            "poses": bool(np.allclose(traj[:, 0, 3], np.arange(n), atol=1e-3)),
+            "db": bool(torch.isfinite(st.desc_db.descriptors[:n]).all())
+            and int(st.desc_db.count) == n,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"replay state checks failed: {checks}")
+        return loops
+
+
+def phase_slice(torch, kernels, bench: BenchReplay) -> dict:
+    """Phase 5; returns the kernel launch counts of the untimed counting
+    run."""
+    from scl_slam_tpu_torch.geometry import se3
+    from scl_slam_tpu_torch.runtime import mapper as M
+
+    cfg, B, R, n, n_pts, scans = bench.cfg, bench.B, bench.R, bench.n, bench.n_pts, bench.scans
+    log(f"[5] generated {n} bench scans in {bench.gen_s:.1f} s")
+    launches, m, out, times = bench.timed(kernels)
     fps = n / float(np.median(times))
-    loops = sum(1 for x in out["loops"] if x)
-    st = m.state
     if launches["max_image"] < R or launches["nn_select_batched"] < 1:
         raise AssertionError(f"replay did not go through both kernels: {launches}")
-    traj = m.trajectory()
-    checks = {
-        "keyframes": int(st.counts[0]) == n == out["keyframes"],
-        "edges": int(st.graph.num_edges) == n - 1,
-        "queue": int(st.loop_queue.count) == loops,
-        "finite": bool(np.isfinite(traj).all()) and traj.shape == (n, 4, 4),
-        "poses": bool(np.allclose(traj[:, 0, 3], np.arange(n), atol=1e-3)),
-        "db": bool(torch.isfinite(st.desc_db.descriptors[:n]).all()) and int(st.desc_db.count) == n,
-    }
-    if not all(checks.values()):
-        raise AssertionError(f"replay state checks failed: {checks}")
+    loops = bench.check_state(m, out)
     log(f"[5] Mapper.replay {n} frames ({n_pts} pts, B={B} x {R}), 5 runs: "
         f"median {fps:.2f} frames/s "
         f"(run seconds {', '.join(f'{x:.4f}' for x in times)}); loops {loops}; "
-        f"launches in the first timed run {launches}; state checks ok")
+        f"launches in the untimed counting run {launches}; state checks ok")
 
     # the same chunk with scans already on the card, as bench.py times it
     dev = torch.device("cuda")
@@ -582,37 +641,10 @@ def profile_replay(torch, M, cfg, args) -> None:
 
 
 def phase_cross_device(torch) -> None:
-    from scl_slam_tpu_torch.config import (
-        KeyframeConfig, LoopConfig, OptimizerConfig, ScanContextParams, SlamConfig,
-    )
-    from scl_slam_tpu_torch.geometry import se3
-    from scl_slam_tpu_torch.runtime import mapper as M
-
-    cfg = SlamConfig(
-        keyframe=KeyframeConfig(
-            max_keyframes=256, points_per_keyframe=1024, raw_points_capacity=16384
-        ),
-        # sparse surface-sampled synthetic scans: the looser gates that
-        # tests/test_pipeline.py uses for them
-        loop=LoopConfig(near_keyframes=6, submap_capacity=2048, icp_iterations=20,
-                        history_fitness_score=8.0),
-        optimizer=OptimizerConfig(edge_capacity=512),
-        scan_context=ScanContextParams(
-            exclude_recent=16, num_candidates=6, distance_threshold=0.25
-        ),
-    )
     T, scans = revisit_world(64, 16384)
-    T = T.astype(np.float32)
-    poses = [se3.Pose(T[k, :3, :3], T[k, :3, 3]) for k in range(len(T))]
-    stamps = [0.1 * k for k in range(len(T))]
-    runs = {}
-    for device in ("cpu", "cuda"):
-        m = M.Mapper(cfg, device)
-        t = time.perf_counter()
-        out = m.replay(poses, scans, stamps, apply_gate=False, batch=16, chunk_batches=2)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        runs[device] = (m, out, time.perf_counter() - t)
+    world = (T.astype(np.float32), scans)
+    runs = {device: revisit_replay(torch, revisit_cfg(), device, world)
+            for device in ("cpu", "cuda")}
     (mc, oc, tc), (mg, og, tg) = runs["cpu"], runs["cuda"]
     ok_c = [x is not None for x in oc["loops"]]
     ok_g = [x is not None for x in og["loops"]]
@@ -1224,32 +1256,82 @@ def fleet_bench_cfg():
     )
 
 
-def phase_fleet_bench(torch, kernels) -> dict:
-    """Phase 14: bench.py's fleet workload (bench.py:346-414): one staged
-    batch of 16 scans (robots alternating) reused over 4 steps with shifted
-    poses, on a fresh state per run."""
-    from scl_slam_tpu_torch.ops import registration as reg
-    from scl_slam_tpu_torch.runtime import fleet as F
-    from scl_slam_tpu_torch.runtime import mapper as M
+class FleetBench:
+    """bench.py's fleet workload (bench.py:346-414): one staged batch of 16
+    scans (robots alternating) reused over 4 steps with shifted poses, on a
+    fresh state per run."""
 
-    cfg = fleet_bench_cfg()
     B, n_steps = 16, 4
-    n_pts = cfg.keyframe.raw_points_capacity
-    dev = torch.device("cuda")
-    rng = np.random.RandomState(1)
-    scans = []
-    for k in range(B):
-        theta = rng.uniform(-np.pi, np.pi, n_pts)
-        r = rng.uniform(2, 75, n_pts)
-        z = np.sin(theta * 3 + k * 0.1) * 2 + rng.normal(0, 0.4, n_pts) - 1.0
-        scans.append(np.stack([r * np.cos(theta), r * np.sin(theta), z], -1).astype(np.float32))
-    xs = torch.from_numpy(np.stack(scans)).to(dev)
-    masks = torch.ones((B, n_pts), dtype=torch.bool, device=dev)
-    robots = torch.tensor([k % 2 for k in range(B)], dtype=torch.int32, device=dev)
-    pose_R = torch.eye(3, device=dev).expand(B, 3, 3).contiguous()
-    pose_ts = [torch.tensor([[2.0 * (s * B + k), 4.0 * (k % 2), 0.0] for k in range(B)],
-                            device=dev) for s in range(n_steps)]
-    stamps = torch.zeros((B,), device=dev)
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.cfg = cfg = fleet_bench_cfg()
+        B = self.B
+        self.n_pts = n_pts = cfg.keyframe.raw_points_capacity
+        self.dev = dev = torch.device("cuda")
+        rng = np.random.RandomState(1)
+        scans = []
+        for k in range(B):
+            theta = rng.uniform(-np.pi, np.pi, n_pts)
+            r = rng.uniform(2, 75, n_pts)
+            z = np.sin(theta * 3 + k * 0.1) * 2 + rng.normal(0, 0.4, n_pts) - 1.0
+            scans.append(np.stack([r * np.cos(theta), r * np.sin(theta), z], -1).astype(np.float32))
+        self.xs = torch.from_numpy(np.stack(scans)).to(dev)
+        self.masks = torch.ones((B, n_pts), dtype=torch.bool, device=dev)
+        self.robots = torch.tensor([k % 2 for k in range(B)], dtype=torch.int32, device=dev)
+        self.pose_R = torch.eye(3, device=dev).expand(B, 3, 3).contiguous()
+        self.pose_ts = [torch.tensor([[2.0 * (s * B + k), 4.0 * (k % 2), 0.0] for k in range(B)],
+                                     device=dev) for s in range(self.n_steps)]
+        self.stamps = torch.zeros((B,), device=dev)
+
+    def step(self, state, s):
+        from scl_slam_tpu_torch.runtime import fleet as F
+
+        return F._fleet_step(state, 0, s, self.robots, self.pose_R, self.pose_ts[s], self.xs,
+                             self.masks, self.stamps, self.cfg)
+
+    def run(self, n_steps=None):
+        """(state, per-step outputs, seconds ended by a synchronize)."""
+        from scl_slam_tpu_torch.runtime import mapper as M
+
+        state = M.make_state(self.cfg, self.dev)
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = []
+        for s in range(self.n_steps if n_steps is None else n_steps):
+            state, out = self.step(state, s)
+            outs.append(out)
+        self.torch.cuda.synchronize()
+        return state, outs, time.perf_counter() - t
+
+    def ransac_verdicts(self) -> list:
+        """One run; per RANSAC call (active lanes, success flags, inlier
+        counts)."""
+        from scl_slam_tpu_torch.ops import registration as reg
+
+        records = []
+
+        def recording(fn):
+            def ransac(*a, **k):
+                res = fn(*a, **k)
+                records.append((a[4].tolist(), res.success.tolist(), res.num_inliers.tolist()))
+                return res
+            return ransac
+
+        undo = patched(reg, "ransac_align_batched", recording)
+        try:
+            self.run()
+        finally:
+            undo()
+        return records
+
+
+def phase_fleet_bench(torch, kernels) -> dict:
+    """Phase 14: :class:`FleetBench`, timed."""
+    from scl_slam_tpu_torch.ops import registration as reg
+
+    bench = FleetBench(torch)
+    cfg, B, n_steps, n_pts = bench.cfg, bench.B, bench.n_steps, bench.n_pts
     attempts = {"intra": 0, "inter": 0}
 
     def counting(name):
@@ -1260,30 +1342,18 @@ def phase_fleet_bench(torch, kernels) -> dict:
             return counted
         return wrap
 
-    def run():
-        state = M.make_state(cfg, dev)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        outs = []
-        for s in range(n_steps):
-            state, out = F._fleet_step(state, 0, s, robots, pose_R, pose_ts[s], xs, masks,
-                                       stamps, cfg)
-            outs.append(out)
-        torch.cuda.synchronize()
-        return state, outs, time.perf_counter() - t
-
     # the warm-up run counts launches and attempts; the counting wrappers
     # read the card, so the 5 timed runs go without them
     undos = [patched(reg, "icp_batched", counting("intra")),
              patched(reg, "ransac_align_batched", counting("inter"))]
     try:
         kernels.reset_launch_counts()
-        state, outs, _ = run()
+        state, outs, _ = bench.run()
         launches = dict(kernels.LAUNCHES)
     finally:
         for u in undos:
             u()
-    times = [run()[2] for _ in range(5)]
+    times = [bench.run()[2] for _ in range(5)]
     fps = B * n_steps / float(np.median(times))
     ok_i = sum(int(o[0].sum()) for o in outs)
     ok_x = sum(int(o[3].sum()) for o in outs)
@@ -1306,13 +1376,9 @@ def phase_fleet_bench(torch, kernels) -> dict:
         f"(run seconds {', '.join(f'{x:.4f}' for x in times)}); launches in the untimed counted run "
         f"{launches}; attempts intra {attempts['intra']}, inter {attempts['inter']}; loops "
         f"intra {ok_i}, inter {ok_x}; state checks ok")
-    state = M.make_state(cfg, dev)
-    for s in range(n_steps - 1):
-        state, _ = F._fleet_step(state, 0, s, robots, pose_R, pose_ts[s], xs, masks, stamps, cfg)
+    state, _, _ = bench.run(n_steps - 1)
     profile_block(torch, "[14]", "the last fleet step of a run",
-                  lambda: F._fleet_step(state, 0, n_steps - 1, robots, pose_R,
-                                        pose_ts[n_steps - 1], xs, masks, stamps, cfg),
-                  "profile_fleet.txt")
+                  lambda: bench.step(state, n_steps - 1), "profile_fleet.txt")
     return {"fleet_frames_per_s": fps, "launches": launches}
 
 
@@ -1512,6 +1578,415 @@ def phase_tcp(torch) -> None:
         raise AssertionError(f"the tcp run on the card verified no inter-robot loop (rc {rc})")
 
 
+@contextlib.contextmanager
+def switched(obj, values: dict):
+    """Set module switches (``reg.FUSED_ICP`` and the like) for a block."""
+    old = {k: getattr(obj, k) for k in values}
+    for k, v in values.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(obj, k, v)
+
+
+# the batched-ICP configurations of phases 21 and 22: the JAX package's
+# switches (ops/registration.py), each flipped alone
+SWITCH_CONFIGS = (
+    ("default", {}),
+    ("FUSED_ICP", {"FUSED_ICP": True}),
+    ("NN_INDEX", {"NN_INDEX": True}),
+    ("MXU_NN", {"MXU_NN": True}),
+    ("argmin", {"SELECT_VARIANT": "argmin"}),
+)
+
+
+def rot(w):
+    th = np.linalg.norm(w)
+    k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+
+
+def tie_free_inputs(torch, B, nq, nt, seed, half=60.0, recentre=False):
+    """ICP-like lanes without planted ties: targets uniform in a box of
+    half-width ``half`` (5% invalid pads at 1e6), queries noisy copies of
+    targets; every 4th lane inactive. ``recentre`` moves each lane to its
+    valid-target centroid, as the MXU_NN caller does."""
+    rng = np.random.RandomState(seed)
+    t = rng.uniform(-half, half, (B, nt, 3)).astype(np.float32)
+    valid = rng.rand(B, nt) > 0.05
+    pick = rng.randint(0, nt, (B, nq))
+    q = np.take_along_axis(t, pick[..., None], 1) + rng.normal(0, 0.3, (B, nq, 3))
+    if recentre:
+        c = (t * valid[..., None]).sum(1) / valid.sum(1)[:, None]
+        t, q = t - c[:, None], q - c[:, None]
+    t = np.where(valid[..., None], t, 1e6).astype(np.float32)
+    payload = np.concatenate([np.swapaxes(t, -1, -2), valid[:, None].astype(np.float32)], 1)
+    active = (np.arange(B) % 4 != 3).astype(np.int32)
+    dev = torch.device("cuda")
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (q.astype(np.float32), payload, active))
+
+
+def k5_inputs(torch, B, nq, nt, seed):
+    """K5 inputs: tie_free_inputs' lanes (half-width 30 m, about the
+    recentred submaps the fused path passes); each lane's queries are put
+    in a local frame by a random pose (rotation ~0.25 rad, up to 5 m), which
+    R, t map back; ~10% of the source points invalid."""
+    q, payload, active = tie_free_inputs(torch, B, nq, nt, seed, half=30.0)
+    rng = np.random.RandomState(seed + 1)
+    dev = q.device
+    R = torch.tensor(np.stack([rot(rng.normal(0, 0.15, 3)) for _ in range(B)]),
+                     dtype=torch.float32, device=dev)
+    t = torch.tensor(rng.uniform(-5, 5, (B, 3)), dtype=torch.float32, device=dev)
+    local = torch.einsum("bji,bnj->bni", R, q - t[:, None])          # R^T (q - t)
+    valid = torch.from_numpy(rng.rand(B, nq) > 0.1).to(dev)
+    src4 = torch.cat([local.transpose(1, 2), valid[:, None].float()], 1).contiguous()
+    return src4, payload, R.contiguous(), t.contiguous(), active
+
+
+def nn_bound(B_active, nq, nt, n_bytes):
+    """9 FP32 operations a (query, target) pair of an active lane: 3
+    subtracts, 3 multiplies, 2 adds, 1 compare (K8: 3 multiplies and 2
+    adds of the cross term, the doubling, a subtract, an add, a compare)."""
+    return bound(n_bytes, 9 * B_active * nq * nt)
+
+
+def kernel_times(torch, call, plain, graph_reps=20, plain_reps=5):
+    """(kernel ms by CUDA-graph replays, eager ms, plain ms)."""
+    eager = time_cuda(torch, call, reps=graph_reps)
+    ms = time_graph(torch, call, reps=graph_reps)
+    plain_ms = time_graph(torch, plain, reps=plain_reps)
+    return ms, eager, plain_ms
+
+
+# K5 against its plain version: the counts exactly; every sum within 2e-6
+# of its terms' absolute mass (sum of |term|) of their exact (float64) sum.
+# A float32 sum whose every term passes through at most d roundings is
+# within d * 2**-24 of that mass: the kernel's order (a 32-lane shuffle
+# tree, 2 warps, then up to 16 blocks in sequence at Nq = 1,024) has d <=
+# 22, 1.3e-6. The moment sums cancel (signed coordinates), so a bound
+# relative to the sum itself would not hold.
+K5_MASS_TOL = 2e-6
+
+
+def k5_error(kernels, m, args, variant) -> float:
+    """max |m - exact| / mass over the slots with mass (exactly 0 required
+    where the mass is 0: inactive lanes)."""
+    terms = kernels.icp_moments_terms_plain(*args, 3.0, variant=variant).double()
+    exact, mass = terms.sum(dim=1), terms.abs().sum(dim=1)
+    err = (m.double() - exact).abs()
+    if bool((err[mass == 0] != 0).any()):
+        raise AssertionError("K5: a sum without terms is not zero")
+    return float((err / mass.clamp(min=1e-300)).max().item())
+
+
+def phase_k5(torch, kernels) -> dict:
+    res = {}
+    for B, nq, nt, label in ((32, 1024, 8192, "full"), (32, 256, 2048, "coarse")):
+        args = k5_inputs(torch, B, nq, nt, seed=nq + 5)
+        src4, payload, R, t, active = args
+        out = {}
+        for variant in ("mineq", "argmin"):
+            m = kernels.icp_moments_batched(*args, 3.0, variant=variant)
+            ref = kernels.icp_moments_batched_plain(*args, 3.0, variant=variant)
+            torch.cuda.synchronize()
+            for k in (kernels.M_W, kernels.M_NSRC):
+                if not torch.equal(m[:, k], ref[:, k]):
+                    raise AssertionError(f"K5 {label} {variant}: slot {k} differs: "
+                                         f"{m[:, k].tolist()} vs {ref[:, k].tolist()}")
+            rel, rel_p = k5_error(kernels, m, args, variant), k5_error(kernels, ref, args, variant)
+            if max(rel, rel_p) > K5_MASS_TOL:
+                raise AssertionError(f"K5 {label} {variant}: error {rel} (plain {rel_p}) of the "
+                                     f"terms' mass > {K5_MASS_TOL}")
+            if not (m[3::4] == 0).all():
+                raise AssertionError(f"K5 {label} {variant}: an inactive lane is not zero")
+            if int(m[0, kernels.M_W]) < nq // 2:
+                raise AssertionError(f"K5 {label}: too few correspondences {m[0, kernels.M_W]}")
+            ms, eager, plain_ms = kernel_times(
+                torch, lambda v=variant: kernels.icp_moments_batched(*args, 3.0, variant=v),
+                lambda v=variant: kernels.icp_moments_batched_plain(*args, 3.0, variant=v),
+            )
+            out[variant] = (m, ref, rel, ms, eager, plain_ms)
+        if not torch.equal(out["mineq"][0], out["argmin"][0]):
+            raise AssertionError(f"K5 {label}: mineq and argmin differ on tie-free inputs")
+        n_active = int(active.sum().item())
+        bound_ms, bound_by = nn_bound(
+            n_active, nq, nt, 4 * (B * 4 * nq + B * 4 * nt + B * 12 + B + B * 18)
+        )
+        m, ref, rel, ms, eager, plain_ms = out["mineq"]
+        log(f"[18] K5 {label} {B}x{nq}x{nt} ({n_active} lanes active): counts equal, error of "
+            f"the terms' mass {rel:.3g} (mineq), {out['argmin'][2]:.3g} (argmin), mineq == argmin; "
+            f"mineq kernel {ms:.4f} ms (eager call {eager:.4f} ms), plain {plain_ms:.4f} ms; "
+            f"argmin kernel {out['argmin'][3]:.4f} ms (eager {out['argmin'][4]:.4f} ms), "
+            f"plain {out['argmin'][5]:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+        res[label] = {"max_abs_err": float((m - ref).abs().max().item()), "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return res
+
+
+def phase_k7(torch, kernels) -> dict:
+    """K7 and K1's argmin body against their plain versions, on the planted
+    ties of phase 3's inputs."""
+    res = {}
+    for B, nq, nt, label in ((32, 1024, 8192, "replay"), (16, 1024, 8192, "fleet_ransac")):
+        args = k1_inputs(torch, B, nq, nt, seed=nq + B)
+        q, payload, active = args
+        d7, idx = kernels.nn_index_batched(*args)
+        d7_p, idx_p = kernels.nn_index_batched_plain(*args)
+        d1, sel = kernels.nn_select_batched(*args, variant="argmin")
+        d1_p, sel_p = kernels.nn_select_batched_plain(*args, variant="argmin")
+        torch.cuda.synchronize()
+        for what, a, b in (("K7 d2", d7, d7_p), ("K7 index", idx, idx_p),
+                           ("K1-argmin d2", d1, d1_p), ("K1-argmin sel", sel, sel_p)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what} {label}: differs from the plain version in "
+                                     f"{(a != b).sum().item()} places")
+        gathered = payload.gather(2, idx.long()[:, None].expand(-1, 4, -1))
+        gathered = torch.where(active.bool()[:, None, None], gathered, 0.0)
+        if not (torch.equal(d7, d1) and torch.equal(gathered, sel)):
+            raise AssertionError(f"K7 + gather {label}: differs from K1-argmin")
+        # query k of lane 2 ties at d2 = 1 with targets k, n_tie + k and
+        # 2 n_tie + k (and with a lower index where two queries share a
+        # grid point): the lowest index wins
+        n_tie = min(nt // 3, nq)
+        k = torch.arange(n_tie, device=idx.device)
+        if not ((d7[2, :n_tie] == 1.0).all() and (idx[2, :n_tie] <= k).all()):
+            raise AssertionError(f"K7 {label}: the planted ties did not take the lowest index")
+        n_active = int(active.sum().item())
+        k7 = kernel_times(torch, lambda: kernels.nn_index_batched(*args),
+                          lambda: kernels.nn_index_batched_plain(*args))
+        k1a = kernel_times(torch, lambda: kernels.nn_select_batched(*args, variant="argmin"),
+                           lambda: kernels.nn_select_batched_plain(*args, variant="argmin"))
+        # bytes: queries, the 3 target rows (K7) or 4 payload rows (K1) once,
+        # active, and the outputs once
+        b7 = nn_bound(n_active, nq, nt, 4 * (B * nq * 3 + B * 3 * nt + B + 2 * B * nq))
+        b1 = nn_bound(n_active, nq, nt, 4 * (B * nq * 3 + B * 4 * nt + B + 5 * B * nq))
+        log(f"[19] K7 {label} {B}x{nq}x{nt}: d2 and index bit-equal, K7 + gather == K1-argmin; "
+            f"K7 kernel {k7[0]:.4f} ms (eager {k7[1]:.4f} ms), plain {k7[2]:.4f} ms, bound "
+            f"{b7[0]:.4f} ms ({b7[1]}); K1-argmin kernel {k1a[0]:.4f} ms (eager {k1a[1]:.4f} "
+            f"ms), plain {k1a[2]:.4f} ms, bound {b1[0]:.4f} ms ({b1[1]})")
+        res[label] = {
+            "k7": {"max_abs_err": float((idx - idx_p).abs().max().item()), "ms": k7[0],
+                   "plain_ms": k7[2], "bound_ms": b7[0], "bound_by": b7[1]},
+            "k1_argmin": {"max_abs_err": float((sel - sel_p).abs().max().item()), "ms": k1a[0],
+                          "plain_ms": k1a[2], "bound_ms": b1[0], "bound_by": b1[1]},
+        }
+    return res
+
+
+def phase_k8(torch, kernels) -> dict:
+    B, nq, nt = 32, 1024, 8192
+    args = tie_free_inputs(torch, B, nq, nt, seed=8, recentre=True)
+    q, payload, active = args
+    d8, sel8 = kernels.nn_select_batched_mxu(*args)
+    d8_p, sel8_p = kernels.nn_select_batched_mxu_plain(*args)
+    _, sel1 = kernels.nn_select_batched(*args, variant="argmin")
+    torch.cuda.synchronize()
+    if not (torch.equal(d8, d8_p) and torch.equal(sel8, sel8_p)):
+        raise AssertionError(f"K8: differs from the plain version in "
+                             f"{(d8 != d8_p).sum().item()} d2 and {(sel8 != sel8_p).sum().item()} "
+                             f"sel places")
+    on = active.bool()
+    m8, m1 = sel8[on, :3].transpose(1, 2), sel1[on, :3].transpose(1, 2)
+    same = (m8 == m1).all(-1).float().mean().item()
+    dd = (((q[on] - m8) ** 2).sum(-1) - ((q[on] - m1) ** 2).sum(-1)).max().item()
+    if same < 0.99 or dd > 5e-3:
+        raise AssertionError(f"K8 vs K1: {same:.4f} identical winners, exact d2 {dd} above")
+    if not (torch.isinf(d8[~on]).all() and (sel8[~on] == 0).all()):
+        raise AssertionError("K8: an inactive lane was written")
+    n_active = int(on.sum().item())
+    ms, eager, plain_ms = kernel_times(torch, lambda: kernels.nn_select_batched_mxu(*args),
+                                       lambda: kernels.nn_select_batched_mxu_plain(*args))
+    bound_ms, bound_by = nn_bound(n_active, nq, nt, 4 * (B * nq * 3 + B * 4 * nt + B + 5 * B * nq))
+    log(f"[20] K8 {B}x{nq}x{nt} (recentred): bit-equal to the plain version; against K1: "
+        f"{100 * same:.3f}% identical winners, exact d2 at most {dd:.3g} above; kernel {ms:.4f} "
+        f"ms (eager {eager:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": float((sel8 - sel8_p).abs().max().item()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_replay_switches(torch, kernels, bench: BenchReplay) -> dict:
+    """Phase 21: phase 5's workload under each switch, compared within this
+    phase only (host-bound numbers move between calls)."""
+    from scl_slam_tpu_torch.ops import registration as reg
+
+    res = {}
+    for name, values in SWITCH_CONFIGS:
+        with switched(reg, values):
+            launches, m, out, times = bench.timed(kernels)
+        loops = bench.check_state(m, out)
+        k1 = launches["nn_select_batched"] + launches["nn_select_batched_argmin"]
+        required = {
+            "default": launches["nn_select_batched"] > 0,
+            "FUSED_ICP": launches["icp_moments_batched"] > 0 and k1 == 0,
+            "NN_INDEX": launches["nn_index_batched"] > 0 and k1 == 0,
+            "MXU_NN": launches["nn_select_batched_mxu"] > 0 and k1 > 0,
+            "argmin": launches["nn_select_batched_argmin"] > 0
+            and launches["nn_select_batched"] == 0,
+        }[name]
+        if not required:
+            raise AssertionError(f"replay under {name} did not launch its kernels: {launches}")
+        fps = [bench.n / x for x in times]
+        batched = {k: v for k, v in launches.items() if v and k != "max_image"}
+        log(f"[21] replay under {name}: median {float(np.median(fps)):.2f} frames/s (runs "
+            f"{', '.join(f'{x:.2f}' for x in fps)}), loops {loops}, ICP launches {batched}; "
+            f"state checks ok")
+        res[name] = {"fps": float(np.median(fps)), "launches": launches}
+    return res
+
+
+def revisit_cfg(submap_capacity: int = 2048):
+    from scl_slam_tpu_torch.config import (
+        KeyframeConfig, LoopConfig, OptimizerConfig, ScanContextParams, SlamConfig,
+    )
+
+    return SlamConfig(
+        keyframe=KeyframeConfig(
+            max_keyframes=256, points_per_keyframe=1024, raw_points_capacity=16384
+        ),
+        # sparse surface-sampled synthetic scans: the looser gates that
+        # tests/test_pipeline.py uses for them
+        loop=LoopConfig(near_keyframes=6, submap_capacity=submap_capacity, icp_iterations=20,
+                        history_fitness_score=8.0),
+        optimizer=OptimizerConfig(edge_capacity=512),
+        scan_context=ScanContextParams(
+            exclude_recent=16, num_candidates=6, distance_threshold=0.25
+        ),
+    )
+
+
+def revisit_replay(torch, cfg, device, world):
+    """The revisit workload through ``Mapper.replay``: (mapper, output,
+    seconds)."""
+    from scl_slam_tpu_torch.geometry import se3
+    from scl_slam_tpu_torch.runtime import mapper as M
+
+    T, scans = world
+    poses = [se3.Pose(T[k, :3, :3], T[k, :3, 3]) for k in range(len(T))]
+    stamps = [0.1 * k for k in range(len(T))]
+    m = M.Mapper(cfg, device)
+    t = time.perf_counter()
+    out = m.replay(poses, scans, stamps, apply_gate=False, batch=16, chunk_batches=2)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return m, out, time.perf_counter() - t
+
+
+def phase_switch_decisions(torch, kernels) -> None:
+    """Phase 22: the revisit workload at 4,096-point submaps (so that the
+    path rule holds on both ICP stages) under each switch on the card, the
+    fused path also on the CPU, then the fleet bench under NN_INDEX."""
+    from scl_slam_tpu_torch.ops import registration as reg
+
+    T, scans = revisit_world(64, 16384)
+    world = (T.astype(np.float32), scans)
+    cfg = revisit_cfg(4096)
+    # a lane that ends at the stall exit (no 10% gain in 3 updates, once an
+    # update is below STALL_ABS_FACTOR * icp_tol) stops anywhere in a basin
+    # of about that size: the JAX package's own bound for such lanes
+    stall_bound = reg.STALL_ABS_FACTOR * cfg.loop.icp_tol
+
+    def revisit(name, values, device="cuda"):
+        stalled = [0]
+
+        def counting(fn):
+            def icp(*a, **k):
+                r = fn(*a, **k)
+                gate = r.fitness < k["gate_fitness"]
+                stalled[0] += int((a[3] & ~r.converged & gate).sum())
+                return r
+            return icp
+
+        undo = patched(reg, "icp_batched", counting)
+        try:
+            with switched(reg, values):
+                kernels.reset_launch_counts()
+                m, out, secs = revisit_replay(torch, cfg, device, world)
+                launches = {k: v for k, v in kernels.LAUNCHES.items() if v and k != "max_image"}
+        finally:
+            undo()
+        nq = int(m.state.loop_queue.count)
+        lq = m.state.loop_queue
+        return {
+            "ok": [x is not None for x in out["loops"]],
+            "idx": [x["matched_index"] for x in out["loops"] if x],
+            "q": {k: getattr(lq, k)[:nq].cpu().numpy() for k in ("i", "j", "z_t")},
+            "nq": nq, "secs": secs, "launches": launches, "stalled": stalled[0],
+        }
+
+    def compare(r, ref, what):
+        """The same decisions, matched indices and queue endpoints; z_t
+        within 5e-3 m, but for as many loops as ended at the stall exit in
+        either run, which stay within the stall bound. Returns max |dz|."""
+        if r["ok"] != ref["ok"] or r["idx"] != ref["idx"]:
+            raise AssertionError(f"revisit {what}: loop decisions differ")
+        if not all(np.array_equal(r["q"][k], ref["q"][k]) for k in ("i", "j")):
+            raise AssertionError(f"revisit {what}: loop-queue endpoints differ")
+        dz = np.abs(r["q"]["z_t"] - ref["q"]["z_t"]).max(axis=1)
+        n_far = int((dz > 5e-3).sum())
+        if n_far > r["stalled"] + ref["stalled"] or dz.max(initial=0.0) > stall_bound:
+            raise AssertionError(f"revisit {what}: z_t differs by {dz.max()} m on {n_far} loops "
+                                 f"({r['stalled']} + {ref['stalled']} stall exits)")
+        return float(dz.max(initial=0.0)), n_far
+
+    runs = {name: revisit(name, values) for name, values in SWITCH_CONFIGS}
+    ref = runs["default"]
+    if ref["nq"] == 0:
+        raise AssertionError("the revisit workload closed no loop at 4,096-point submaps")
+    for name in ("FUSED_ICP", "NN_INDEX", "argmin"):
+        runs[name]["dz"] = compare(runs[name], ref, f"under {name}")
+    for name, r in runs.items():
+        same = r["ok"] == ref["ok"] and r["idx"] == ref["idx"]
+        verdict = "the same decisions as the default" if same else "decisions differ"
+        if "dz" in r:
+            verdict += f", max |dz_t| {r['dz'][0]:.2e} m, {r['dz'][1]} above 5e-3 m"
+        log(f"[22] revisit 64 frames, 4,096-point submaps, under {name}: {r['nq']} loops "
+            f"({verdict}; {r['stalled']} stall exits), {r['secs']:.2f} s, launches {r['launches']}")
+    mxu = runs["MXU_NN"]
+    log(f"[22] MXU_NN (not required equal): loops {mxu['nq']} vs default {ref['nq']}; "
+        f"decisions {'equal' if mxu['ok'] == ref['ok'] else 'differ'}, matched indices "
+        f"{'equal' if mxu['idx'] == ref['idx'] else 'differ'}")
+    # the fused path end to end against its plain version: the CPU run
+    cpu = revisit("FUSED_ICP", {"FUSED_ICP": True}, "cpu")
+    dz, n_far = compare(cpu, runs["FUSED_ICP"], "under FUSED_ICP, cpu against cuda")
+    log(f"[22] FUSED_ICP on the cpu ({cpu['secs']:.1f} s): the same {cpu['nq']} loops as on the "
+        f"card, max |dz_t| {dz:.2e} m")
+
+    # the fleet bench's RANSAC 1-NN under NN_INDEX (K7 + one gather). Its
+    # submaps repeat a keyframe while a robot has few, so exact d2 ties
+    # between identical points occur: K7 takes the lowest index, as K1's
+    # argmin body does, while the default mineq body averages the tied
+    # copies, which can move the matched point by an ulp and a residual
+    # across the inlier threshold. So NN_INDEX must equal the argmin run
+    # exactly, and the default run in attempts and success flags.
+    fleet = FleetBench(torch)
+    verdicts, fleet_launches = {}, {}
+    for name, values in (("default", {}), ("argmin", {"SELECT_VARIANT": "argmin"}),
+                         ("NN_INDEX", {"NN_INDEX": True})):
+        with switched(reg, values):
+            kernels.reset_launch_counts()
+            verdicts[name] = fleet.ransac_verdicts()
+            fleet_launches[name] = dict(kernels.LAUNCHES)
+    la = fleet_launches["NN_INDEX"]
+    if la["nn_index_batched"] < 1 or la["nn_select_batched"] + la["nn_select_batched_argmin"] > 0:
+        raise AssertionError(f"the fleet bench's RANSAC 1-NN did not go through K7: {la}")
+    if verdicts["NN_INDEX"] != verdicts["argmin"]:
+        raise AssertionError("fleet bench under NN_INDEX: RANSAC verdicts differ from argmin's")
+    ref = verdicts["default"]
+    if [(a, s) for a, s, _ in verdicts["NN_INDEX"]] != [(a, s) for a, s, _ in ref]:
+        raise AssertionError("fleet bench under NN_INDEX: attempts or successes differ")
+    d_inl = [abs(x - y) for (_, _, n1), (_, _, n2) in zip(verdicts["NN_INDEX"], ref)
+             for x, y in zip(n1, n2)]
+    att = sum(sum(a) for a, _, _ in ref)
+    succ = sum(sum(s) for _, s, _ in ref)
+    log(f"[22] fleet bench under NN_INDEX: RANSAC verdicts equal to the argmin run's; the same "
+        f"{att} inter attempts and {succ} successes as the default, inlier counts differing on "
+        f"{sum(1 for x in d_inl if x)} lanes by at most {max(d_inl, default=0)}; K7 launches "
+        f"{la['nn_index_batched']}, K1 0")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "scl_slam_tpu_torch")):
         raise RuntimeError(
@@ -1526,7 +2001,8 @@ def main() -> int:
     phase_build(kernels)
     k1 = phase_k1(torch, kernels)
     k2 = phase_k2(torch, kernels)
-    launches = phase_slice(torch, kernels)
+    bench = BenchReplay(torch)
+    launches = phase_slice(torch, kernels, bench)
     phase_cross_device(torch)
     k4 = phase_k4(torch, kernels)
     live = phase_live_demo(torch, kernels)
@@ -1539,6 +2015,12 @@ def main() -> int:
     fleet = phase_fleet_run(torch, kernels, inter2)
     phase_reduced_fleet(torch)
     phase_eviction(torch)
+    k5 = phase_k5(torch, kernels)
+    k7 = phase_k7(torch, kernels)
+    k8 = phase_k8(torch, kernels)
+    switches = phase_replay_switches(torch, kernels, bench)
+    del bench
+    phase_switch_decisions(torch, kernels)
 
     def entry(name, source, replaces, n, res, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"scl_slam_tpu_torch/csrc/{source}",
@@ -1548,8 +2030,9 @@ def main() -> int:
 
     # launches: K1 and K2 from the replay run (phase 5), K4 from the live
     # demo (phase 8), K3 from the two-robot run (phase 11), K6 from the
-    # fleet run (phase 15); K1, K3, K4 and K6 have no single PyTorch call
-    # (library_ms null)
+    # fleet run (phase 15), K5, K7, K8 and K1's argmin body from the replay
+    # under their switches (phase 21); no kernel but K2 has a single
+    # PyTorch call (library_ms null)
     report = {"kernels": [
         entry("nn_select_batched", "nn_select_batched.cu", 273,
               launches["nn_select_batched"], k1["full"]),
@@ -1558,6 +2041,14 @@ def main() -> int:
         entry("nearest_neighbors", "nn_select.cu", 532, multi["nearest_neighbors"], k3["full"]),
         entry("ransac_counts_batched", "ransac_counts.cu", 898, fleet["ransac_counts_batched"],
               k6["fleet"]),
+        entry("icp_moments_batched", "icp_moments.cu", 768,
+              switches["FUSED_ICP"]["launches"]["icp_moments_batched"], k5["full"]),
+        entry("nn_index_batched", "nn_select_batched.cu", 367,
+              switches["NN_INDEX"]["launches"]["nn_index_batched"], k7["replay"]["k7"]),
+        entry("nn_select_batched_mxu", "nn_select_batched.cu", 479,
+              switches["MXU_NN"]["launches"]["nn_select_batched_mxu"], k8),
+        entry("nn_select_batched_argmin", "nn_select_batched.cu", 273,
+              switches["argmin"]["launches"]["nn_select_batched_argmin"], k7["replay"]["k1_argmin"]),
     ]}
     log(f"card: {smi}")
     print(json.dumps(report), flush=True)

@@ -6,14 +6,24 @@ paths, their plain PyTorch versions, and the build that binds them
 kernel    replaces (TPU, Pallas)          source
 ========  ==============================  ===================================
 K1        ``nn_select_batched_pallas``    ``csrc/nn_select_batched.cu``
-          (variant ``mineq``)
+          (variants ``mineq`` and         (the streaming loop in
+          ``argmin``)                     ``csrc/batched_nn.cuh``)
 K2        ``max_image_pallas`` (exact     ``csrc/max_image.cu``
           here; see the source)
 K3        ``nearest_neighbors_pallas``    ``csrc/nn_select.cu`` (shares
                                           K4's first pass)
 K4        ``nn_select_pallas``            ``csrc/nn_select.cu``
+K5        ``icp_moments_batched_pallas``  ``csrc/icp_moments.cu``
+          (variants ``mineq`` and
+          ``argmin``)
 K6        ``ransac_counts_batched_pallas``  ``csrc/ransac_counts.cu``
+K7        ``nn_index_batched_pallas``     ``csrc/nn_select_batched.cu``
+K8        ``nn_select_batched_mxu_pallas``  ``csrc/nn_select_batched.cu``
 ========  ==============================  ===================================
+
+K5, K7, K8 and K1's argmin body run behind the batched-ICP switches of
+``ops/registration.py`` (``FUSED_ICP``, ``NN_INDEX``, ``MXU_NN``,
+``SELECT_VARIANT``), as in the JAX package.
 
 Each wrapper takes its plain version for CPU tensors, and only then. On a
 CUDA tensor it launches its kernel or raises; nothing falls back. The
@@ -21,9 +31,9 @@ kernels are compiled on first use with ``nvcc`` (for ``sm_90a``, with
 ``-fmad=false`` so no multiply-add is contracted; one ``nvcc`` per source,
 all started together, then one link) into a shared library with a plain C
 interface under ``_build/``, and loaded with ``ctypes``.
-``LAUNCHES`` counts the kernel launches per wrapper, so a run can show that
-it went through them (K3 and K4 are two launches each, a partial pass and
-a reduction, counted as one call).
+``LAUNCHES`` counts the kernel launches per wrapper (K1 per body), so a
+run can show that it went through them (K3, K4 and K5 are two launches
+each, a partial pass and a reduction, counted as one call).
 """
 from __future__ import annotations
 
@@ -49,7 +59,8 @@ NVCC_FLAGS = (
 # kernel launches per wrapper since the last reset_launch_counts()
 LAUNCHES = {
     "nn_select_batched": 0, "max_image": 0, "nn_select": 0, "nearest_neighbors": 0,
-    "ransac_counts_batched": 0,
+    "ransac_counts_batched": 0, "nn_select_batched_argmin": 0, "nn_index_batched": 0,
+    "nn_select_batched_mxu": 0, "icp_moments_batched": 0,
 }
 
 _lib = None
@@ -63,6 +74,10 @@ def reset_launch_counts() -> None:
 
 def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -87,7 +102,7 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     """
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + _headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     lib = BUILD_DIR / f"libscl_kernels_{h.hexdigest()[:16]}.so"
@@ -136,8 +151,16 @@ def load_library() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.scl_nn_select_batched.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.scl_nn_select_batched.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.scl_nn_select_batched.restype = i
+            lib.scl_nn_index_batched.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.scl_nn_index_batched.restype = i
+            lib.scl_nn_select_batched_mxu.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.scl_nn_select_batched_mxu.restype = i
+            lib.scl_icp_moments_batched.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i, i, p,
+            ]
+            lib.scl_icp_moments_batched.restype = i
             lib.scl_max_image.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.scl_max_image.restype = i
             lib.scl_nn_select.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
@@ -170,14 +193,90 @@ def _stream(device: torch.device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K1: batched 1-NN + payload selection
+# K1: batched 1-NN + payload selection; K7: its index form; K8: its
+# expanded form
 # ---------------------------------------------------------------------------
+
+VARIANTS = ("mineq", "argmin")
+
+
+def _exact_d2(qx, qy, qz, t):
+    """``((dx*dx) + (dy*dy)) + (dz*dz)`` of queries [B, Nq, 1] per
+    coordinate against targets t [B, >=3, C], in exactly that order."""
+    dx = qx - t[:, None, 0]
+    dy = qy - t[:, None, 1]
+    dz = qz - t[:, None, 2]
+    d2 = dx * dx
+    d2 = d2 + dy * dy
+    return d2 + dz * dz                                     # [B, Nq, C]
+
+
+def _default_chunk(B: int, nq: int, nt: int, device: torch.device) -> int:
+    """Targets per chunk of the plain batched 1-NN: a [B, Nq, chunk]
+    transient of 2**24 elements on the card, 2**20 on the CPU (it stays in
+    cache there: 2.5-4x faster than 2**24 at 8 x 1,024 x 4,096)."""
+    budget = 1 << (24 if device.type == "cuda" else 20)
+    return max(1, min(nt, budget // max(1, B * nq)))
+
+
+def _argmin_walk(query, payload, chunk, d2_of):
+    """Running (min d2, lowest index) over the target axis in chunks: the
+    first minimum within a chunk, a strict < across chunks; NaN distances
+    never win. Returns (best [B, Nq], index [B, Nq] int64)."""
+    B, nq, _ = query.shape
+    nt = payload.shape[2]
+    if chunk is None:
+        chunk = _default_chunk(B, nq, nt, query.device)
+    dtype, dev = query.dtype, query.device
+    best = torch.full((B, nq), float("inf"), dtype=dtype, device=dev)
+    arg = torch.zeros((B, nq), dtype=torch.int64, device=dev)
+    for c0 in range(0, nt, chunk):
+        d2 = d2_of(payload[:, :, c0 : c0 + chunk])
+        d2 = torch.where(torch.isnan(d2), float("inf"), d2)
+        cmin, carg = torch.min(d2, dim=-1)   # first minimum on ties
+        take = cmin < best
+        best = torch.where(take, cmin, best)
+        arg = torch.where(take, carg + c0, arg)
+    return best, arg
+
+
+def _gather_columns(payload, idx, found):
+    """payload [B, P, Nt] columns at idx [B, Nq], 0 where not ``found``."""
+    P = payload.shape[1]
+    sel = payload.gather(2, idx[:, None, :].expand(-1, P, -1))
+    return torch.where(found[:, None], sel, 0.0)
+
+
+def nn_index_batched_plain(
+    query: torch.Tensor,
+    payload: torch.Tensor,
+    active: torch.Tensor,
+    chunk: int | None = None,
+):
+    """Plain PyTorch version of K7, written from the contract.
+
+    query [B, Nq, 3]; payload [B, P, Nt] (rows 0-2 target xyz, the only
+    rows read); active [B]. Returns (d2 [B, Nq], index [B, Nq] int32): d2
+    is K1's (bit-equal), index the lowest target index at exactly that d2;
+    inactive lanes, and queries no target beats, give (inf, 0).
+    """
+    qx, qy, qz = (query[:, :, c, None] for c in range(3))   # [B, Nq, 1]
+    best, arg = _argmin_walk(
+        query, payload, chunk, lambda t: _exact_d2(qx, qy, qz, t)
+    )
+    lanes = active.to(torch.bool)[:, None]
+    found = torch.isfinite(best) & lanes
+    return (
+        torch.where(lanes, best, float("inf")),
+        torch.where(found, arg, 0).to(torch.int32),
+    )
 
 
 def nn_select_batched_plain(
     query: torch.Tensor,
     payload: torch.Tensor,
     active: torch.Tensor,
+    variant: str = "mineq",
     chunk: int | None = None,
 ):
     """Plain PyTorch version of K1, written from the contract.
@@ -185,14 +284,20 @@ def nn_select_batched_plain(
     query [B, Nq, 3]; payload [B, P, Nt] (rows 0-2 target xyz); active [B].
     Returns (d2 [B, Nq], sel [B, P, Nq]): d2 is the nearest target's
     ``((dx*dx) + (dy*dy)) + (dz*dz)`` in f32, in exactly that order (so it
-    is bit-equal to the kernel's); sel averages the payload over every
-    target at exactly that d2; inactive lanes give (inf, 0). The target
-    axis is walked in chunks so [B, Nq, Nt] never exists whole.
+    is bit-equal to the kernel's); sel is, for ``variant="mineq"``, the
+    payload averaged over every target at exactly that d2, for
+    ``"argmin"`` the lowest-index such target's column (exact). Inactive
+    lanes give (inf, 0). The target axis is walked in chunks so
+    [B, Nq, Nt] never exists whole.
     """
+    _require(variant in VARIANTS, f"variant must be one of {VARIANTS}, got {variant!r}")
+    if variant == "argmin":
+        d2, idx = nn_index_batched_plain(query, payload, active, chunk)
+        return d2, _gather_columns(payload, idx.long(), torch.isfinite(d2))
     B, nq, _ = query.shape
     P, nt = payload.shape[1], payload.shape[2]
     if chunk is None:
-        chunk = max(1, min(nt, (1 << 24) // max(1, B * nq)))
+        chunk = _default_chunk(B, nq, nt, query.device)
     dtype, dev = query.dtype, query.device
     qx, qy, qz = (query[:, :, c, None] for c in range(3))   # [B, Nq, 1]
     best = torch.full((B, nq), float("inf"), dtype=dtype, device=dev)
@@ -200,12 +305,7 @@ def nn_select_batched_plain(
     cnt = torch.zeros((B, nq), dtype=dtype, device=dev)
     for c0 in range(0, nt, chunk):
         t = payload[:, :, c0 : c0 + chunk]                  # [B, P, C]
-        dx = qx - t[:, None, 0]
-        dy = qy - t[:, None, 1]
-        dz = qz - t[:, None, 2]
-        d2 = dx * dx
-        d2 = d2 + dy * dy
-        d2 = d2 + dz * dz                                   # [B, Nq, C]
+        d2 = _exact_d2(qx, qy, qz, t)                       # [B, Nq, C]
         cmin = d2.min(dim=-1).values
         eq = (d2 == cmin[..., None]).to(dtype)
         # 0/1 weights: each output sums the tied payload values exactly
@@ -228,13 +328,7 @@ def nn_select_batched_plain(
     return d2, sel
 
 
-def nn_select_batched(
-    query: torch.Tensor, payload: torch.Tensor, active: torch.Tensor
-):
-    """K1 (see ``csrc/nn_select_batched.cu``): per-lane-predicated batched
-    1-NN of query [B, Nq, 3] among payload rows 0-2 of [B, 4, Nt], with the
-    winner's (tie-averaged) payload column. Returns (d2 [B, Nq],
-    sel [B, 4, Nq]); lanes with ``active`` false return (inf, 0)."""
+def _check_batched_nn(query, payload, active) -> None:
     B = query.shape[0]
     _require(query.dim() == 3 and query.shape[2] == 3,
              f"query must be [B, Nq, 3], got {tuple(query.shape)}")
@@ -245,15 +339,33 @@ def nn_select_batched(
              "query and payload must be float32")
     _require(query.device == payload.device == active.device,
              "query, payload and active must share a device")
-    if query.device.type == "cpu":
-        return nn_select_batched_plain(query, payload, active)
+
+
+def _check_batched_nn_cuda(query, payload) -> None:
     _require(query.device.type == "cuda", f"unsupported device {query.device}")
     _require(payload.shape[1] == 4,
              f"the kernel takes 4 payload rows, got {payload.shape[1]}")
     _require(query.is_contiguous() and payload.is_contiguous(),
              "query and payload must be contiguous")
-    nq, nt = query.shape[1], payload.shape[2]
-    _require(nt > 0 and B * 4 * max(nq, nt) < 2**31, "sizes out of range")
+    B, nq, nt = query.shape[0], query.shape[1], payload.shape[2]
+    _require(nt > 0 and B < 65536 and B * 4 * max(nq, nt) < 2**31, "sizes out of range")
+
+
+def nn_select_batched(
+    query: torch.Tensor, payload: torch.Tensor, active: torch.Tensor,
+    variant: str = "mineq",
+):
+    """K1 (see ``csrc/nn_select_batched.cu``): per-lane-predicated batched
+    1-NN of query [B, Nq, 3] among payload rows 0-2 of [B, 4, Nt], with the
+    winner's payload column: averaged over exact ties (``variant="mineq"``)
+    or the lowest index's (``"argmin"``). Returns (d2 [B, Nq],
+    sel [B, 4, Nq]); lanes with ``active`` false return (inf, 0)."""
+    _check_batched_nn(query, payload, active)
+    _require(variant in VARIANTS, f"variant must be one of {VARIANTS}, got {variant!r}")
+    if query.device.type == "cpu":
+        return nn_select_batched_plain(query, payload, active, variant)
+    _check_batched_nn_cuda(query, payload)
+    B, nq, nt = query.shape[0], query.shape[1], payload.shape[2]
     act = active.to(torch.int32).contiguous()
     d2 = torch.empty((B, nq), dtype=torch.float32, device=query.device)
     sel = torch.empty((B, 4, nq), dtype=torch.float32, device=query.device)
@@ -262,12 +374,226 @@ def nn_select_batched(
     lib = load_library()
     rc = lib.scl_nn_select_batched(
         query.data_ptr(), payload.data_ptr(), act.data_ptr(),
-        d2.data_ptr(), sel.data_ptr(), B, nq, nt,
+        d2.data_ptr(), sel.data_ptr(), B, nq, nt, VARIANTS.index(variant),
         query.device.index or 0, _stream(query.device),
     )
     _check_launch(lib, rc, "nn_select_batched")
-    LAUNCHES["nn_select_batched"] += 1
+    LAUNCHES["nn_select_batched" if variant == "mineq" else "nn_select_batched_argmin"] += 1
     return d2, sel
+
+
+def nn_index_batched(
+    query: torch.Tensor, payload: torch.Tensor, active: torch.Tensor
+):
+    """K7 (see ``csrc/nn_select_batched.cu``): K1's 1-NN returning the
+    index instead of the payload. query [B, Nq, 3]; payload [B, 4, Nt]
+    (rows 0-2 read); active [B]. Returns (d2 [B, Nq], index [B, Nq]
+    int32), the lowest index on exact ties; inactive lanes (inf, 0)."""
+    _check_batched_nn(query, payload, active)
+    if query.device.type == "cpu":
+        return nn_index_batched_plain(query, payload, active)
+    _check_batched_nn_cuda(query, payload)
+    B, nq, nt = query.shape[0], query.shape[1], payload.shape[2]
+    act = active.to(torch.int32).contiguous()
+    d2 = torch.empty((B, nq), dtype=torch.float32, device=query.device)
+    idx = torch.empty((B, nq), dtype=torch.int32, device=query.device)
+    if B == 0 or nq == 0:
+        return d2, idx
+    lib = load_library()
+    rc = lib.scl_nn_index_batched(
+        query.data_ptr(), payload.data_ptr(), act.data_ptr(), d2.data_ptr(),
+        idx.data_ptr(), B, nq, nt, query.device.index or 0, _stream(query.device),
+    )
+    _check_launch(lib, rc, "nn_index_batched")
+    LAUNCHES["nn_index_batched"] += 1
+    return d2, idx
+
+
+def nn_select_batched_mxu_plain(
+    query: torch.Tensor,
+    payload: torch.Tensor,
+    active: torch.Tensor,
+    chunk: int | None = None,
+):
+    """Plain PyTorch version of K8, written from the contract.
+
+    K1's argmin contract with d2 by the expanded form, elementwise in
+    exactly the kernel's order (no matmul, which would reorder the sum):
+    ``qq = (q0*q0 + q1*q1) + q2*q2``, ``c = (q0*t0 + q1*t1) + q2*t2``,
+    ``tt`` as ``qq``, ``d2 = (qq - 2*c) + tt``. Returns (max(min d2, 0)
+    [B, Nq], sel [B, P, Nq]): the lowest index at the min wins; inactive
+    lanes give (inf, 0). Selection order only: the caller recentres the
+    clouds first and recomputes the winner's exact distance.
+    """
+    qx, qy, qz = (query[:, :, c, None] for c in range(3))   # [B, Nq, 1]
+    qq = (qx * qx + qy * qy) + qz * qz
+
+    def d2_of(t):
+        tx, ty, tz = (t[:, None, c] for c in range(3))      # [B, 1, C]
+        tt = (tx * tx + ty * ty) + tz * tz
+        c = (qx * tx + qy * ty) + qz * tz
+        return (qq - 2.0 * c) + tt
+
+    best, arg = _argmin_walk(query, payload, chunk, d2_of)
+    lanes = active.to(torch.bool)[:, None]
+    found = torch.isfinite(best) & lanes
+    d2 = torch.where(lanes, torch.clamp(best, min=0.0), float("inf"))
+    return d2, _gather_columns(payload, arg, found)
+
+
+def nn_select_batched_mxu(
+    query: torch.Tensor, payload: torch.Tensor, active: torch.Tensor
+):
+    """K8 (see ``csrc/nn_select_batched.cu``): K1's argmin contract with
+    d2 by the expanded form, for selection order only. query [B, Nq, 3];
+    payload [B, 4, Nt]; active [B]. Returns (approximate d2 [B, Nq],
+    sel [B, 4, Nq]); inactive lanes (inf, 0)."""
+    _check_batched_nn(query, payload, active)
+    if query.device.type == "cpu":
+        return nn_select_batched_mxu_plain(query, payload, active)
+    _check_batched_nn_cuda(query, payload)
+    B, nq, nt = query.shape[0], query.shape[1], payload.shape[2]
+    act = active.to(torch.int32).contiguous()
+    d2 = torch.empty((B, nq), dtype=torch.float32, device=query.device)
+    sel = torch.empty((B, 4, nq), dtype=torch.float32, device=query.device)
+    if B == 0 or nq == 0:
+        return d2, sel
+    lib = load_library()
+    rc = lib.scl_nn_select_batched_mxu(
+        query.data_ptr(), payload.data_ptr(), act.data_ptr(), d2.data_ptr(),
+        sel.data_ptr(), B, nq, nt, query.device.index or 0, _stream(query.device),
+    )
+    _check_launch(lib, rc, "nn_select_batched_mxu")
+    LAUNCHES["nn_select_batched_mxu"] += 1
+    return d2, sel
+
+
+# ---------------------------------------------------------------------------
+# K5: one fused batched ICP iteration -> Kabsch moments
+# ---------------------------------------------------------------------------
+
+# moment slots of the [B, 18] output (the TPU kernel's M_* layout)
+M_W = 0          # sum w                      (w = correspondence accepted)
+M_S = 1          # 1:4   sum w * s            (s = pose-transformed source)
+M_D = 4          # 4:7   sum w * d            (d = matched target point)
+M_CROSS = 7      # 7:16  sum w * s_a * d_b    (row-major 3x3)
+M_WD2 = 16       # sum w * d2                 (fitness numerator)
+M_NSRC = 17      # count of valid source points (inlier_frac denominator)
+M_SLOTS = 18
+
+# queries per block of the CUDA kernel's first pass (csrc/batched_nn.cuh)
+_K5_QUERY_BLOCK = 64
+
+
+def icp_moments_terms_plain(
+    src4: torch.Tensor,
+    payload: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    active: torch.Tensor,
+    max_corr_dist: float,
+    variant: str = "mineq",
+) -> torch.Tensor:
+    """The per-query terms [B, Nq, 18] that K5 sums, in float32, each as
+    the kernel forms it (so a check can also take their exact sum and
+    their absolute mass).
+
+    src4 [B, 4, Nq] (local source xyz rows + validity row); payload
+    [B, 4, Nt]; R [B, 3, 3], t [B, 3]; active [B]. Each source point moves
+    by its lane's pose in the kernel's direct form,
+    ``((R_i0*x + R_i1*y) + R_i2*z) + t_i``; its 1-NN with selection is
+    K1's plain version (``variant``); good = valid source & selected
+    validity > 0.5 & d2 < max_corr_dist**2; the terms are 0 where not
+    good (the last, n_src, where the source point is invalid), and 0 on
+    inactive lanes.
+    """
+    x, y, z = src4[:, 0], src4[:, 1], src4[:, 2]                   # [B, Nq]
+    moved = [((R[:, i, 0, None] * x + R[:, i, 1, None] * y) + R[:, i, 2, None] * z)
+             + t[:, i, None] for i in range(3)]                    # 3 x [B, Nq]
+    d2, sel = nn_select_batched_plain(torch.stack(moved, dim=-1), payload, active, variant)
+    lanes = active.to(torch.bool)[:, None]
+    valid = (src4[:, 3] > 0.5) & lanes
+    good = valid & (sel[:, 3] > 0.5) & (d2 < max_corr_dist * max_corr_dist)
+    zero = torch.zeros((), dtype=src4.dtype, device=src4.device)
+
+    def w(v):
+        return torch.where(good, v, zero)
+
+    cols = [good.to(src4.dtype)] + [w(moved[a]) for a in range(3)]
+    cols += [w(sel[:, a]) for a in range(3)]
+    cols += [w(moved[a] * sel[:, b]) for a in range(3) for b in range(3)]
+    cols += [w(d2), valid.to(src4.dtype)]
+    return torch.stack(cols, dim=-1)
+
+
+def icp_moments_batched_plain(
+    src4: torch.Tensor,
+    payload: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    active: torch.Tensor,
+    max_corr_dist: float,
+    variant: str = "mineq",
+) -> torch.Tensor:
+    """Plain PyTorch version of K5, written from the contract: the sums
+    over the query axis of :func:`icp_moments_terms_plain`, [B, 18] in the
+    M_* layout (inactive lanes zeros), taken in torch's order, not the
+    kernel's."""
+    return icp_moments_terms_plain(
+        src4, payload, R, t, active, max_corr_dist, variant
+    ).sum(dim=1)
+
+
+def icp_moments_batched(
+    src4: torch.Tensor,
+    payload: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    active: torch.Tensor,
+    max_corr_dist: float,
+    variant: str = "mineq",
+) -> torch.Tensor:
+    """K5 (see ``csrc/icp_moments.cu``): one batched ICP iteration per
+    lane (transform, 1-NN with selection as K1's ``variant``, gate)
+    reduced to the 18 weighted Kabsch moment sums [B, 18] (M_* layout).
+    src4 [B, 4, Nq]; payload [B, 4, Nt]; R [B, 3, 3]; t [B, 3]; active
+    [B]; inactive lanes return zeros."""
+    B = src4.shape[0]
+    _require(src4.dim() == 3 and src4.shape[1] == 4,
+             f"src4 must be [B, 4, Nq], got {tuple(src4.shape)}")
+    _require(payload.dim() == 3 and payload.shape[:2] == (B, 4),
+             f"payload must be [B, 4, Nt], got {tuple(payload.shape)}")
+    _require(R.shape == (B, 3, 3) and t.shape == (B, 3),
+             f"R, t must be [B, 3, 3], [B, 3], got {tuple(R.shape)}, {tuple(t.shape)}")
+    _require(active.shape == (B,), f"active must be [B], got {tuple(active.shape)}")
+    _require(all(x.dtype == torch.float32 for x in (src4, payload, R, t)),
+             "src4, payload, R and t must be float32")
+    _require(all(x.device == src4.device for x in (payload, R, t, active)),
+             "inputs must share a device")
+    _require(variant in VARIANTS, f"variant must be one of {VARIANTS}, got {variant!r}")
+    if src4.device.type == "cpu":
+        return icp_moments_batched_plain(src4, payload, R, t, active, max_corr_dist, variant)
+    _require(src4.device.type == "cuda", f"unsupported device {src4.device}")
+    _require(all(x.is_contiguous() for x in (src4, payload, R, t)),
+             "src4, payload, R and t must be contiguous")
+    nq, nt = src4.shape[2], payload.shape[2]
+    _require(nt > 0 and B < 65536 and B * 4 * max(nq, nt) < 2**31, "sizes out of range")
+    dev = src4.device
+    m = torch.zeros((B, M_SLOTS), dtype=torch.float32, device=dev)
+    if B == 0 or nq == 0:
+        return m
+    act = active.to(torch.int32).contiguous()
+    n_blocks = -(-nq // _K5_QUERY_BLOCK)
+    partial = torch.empty((B, n_blocks, M_SLOTS), dtype=torch.float32, device=dev)
+    lib = load_library()
+    rc = lib.scl_icp_moments_batched(
+        src4.data_ptr(), payload.data_ptr(), R.data_ptr(), t.data_ptr(), act.data_ptr(),
+        partial.data_ptr(), m.data_ptr(), B, nq, nt, float(max_corr_dist) ** 2,
+        VARIANTS.index(variant), dev.index or 0, _stream(dev),
+    )
+    _check_launch(lib, rc, "icp_moments_batched")
+    LAUNCHES["icp_moments_batched"] += 1
+    return m
 
 
 # ---------------------------------------------------------------------------

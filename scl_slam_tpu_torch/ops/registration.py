@@ -3,14 +3,28 @@ RANSAC for inter-robot loops (port of the replay, live and inter-robot
 paths' part of ``scl_slam_tpu/ops/registration.py``).
 
 Ported: ``kabsch``; the solo path ``nearest_select`` (kernel K4 on CUDA
-tensors), ``_icp_stage`` and ``icp``; the batched path ``_matches_batched``
-(the default branch: exact per-coordinate NN, kernel K1 on CUDA tensors),
-``_icp_stage_batched`` and ``icp_batched`` (the non-fused branch). Both
-keep the coarse stage, the optional target-stride stage, the stall and
-hopeless exits and ``reuse_final_fitness``. The JAX ``lax.while_loop`` is
-a host loop that reads the done flag(s) once per iteration. The solo path
-does not go through K1: K1 averages the payload over exact ties, the solo
-contract takes the lowest index.
+tensors), ``_icp_stage`` and ``icp``; the batched path ``_matches_batched``,
+``_icp_stage_batched``, the fused stage ``_icp_stage_batched_fused`` with
+``_kabsch_from_moments``, and ``icp_batched``. Both keep the coarse stage,
+the optional target-stride stage, the stall and hopeless exits and
+``reuse_final_fitness``. The JAX ``lax.while_loop`` is a host loop that
+reads the done flag(s) once per iteration. The solo path does not go
+through K1: K1's default body averages the payload over exact ties, the
+solo contract takes the lowest index.
+
+The batched ICP's switches are the JAX module's, with its defaults, read
+at call time: ``FUSED_ICP`` (each iteration one kernel K5 pass,
+``kernels.icp_moments_batched``, and its final fitness pass too),
+``MXU_NN`` (the non-exact 1-NN passes by kernel K8,
+``kernels.nn_select_batched_mxu``, on recentred coordinates, the winner's
+distance recomputed exactly), ``NN_INDEX`` (the 1-NN by kernel K7,
+``kernels.nn_index_batched``, then one gather of the payload) and
+``SELECT_VARIANT`` (K1's and K5's tie rule, ``"mineq"`` or
+``"argmin"``). Each takes its path only where the JAX package on a TPU
+would (:func:`_tile_shapes_ok`). They reach the replay path
+(``Mapper.replay``) and the fleet's intra ICP and RANSAC 1-NN
+(``FleetMapper.step``); the live path's solo ICP (K4) and the
+decentralized RANSAC (K3) read none of them, as in JAX.
 
 Inter-robot: ``nearest_neighbors`` (kernel K3 on CUDA tensors),
 ``rigid_from_triangles``, ``triangles_ok`` and ``ransac_align``. RANSAC
@@ -19,11 +33,11 @@ attempt, hypothesis, point) instead of ``jax.random``: the same draws on
 the CPU and on the card, and a test can inject JAX's own samples.
 
 Fleet: ``ransac_align_batched``, B verifications at once, its 1-NN through
-``_matches_batched`` (kernel K1) and its hypotheses scored by kernel K6
-(``kernels.ransac_counts_batched``) on CUDA tensors. Its uniforms come from
-the same counter hash, of (seed, step, lane, hypothesis, sample).
-Point-to-plane ICP and the fused-moments path are not ported yet (ROADMAP
-queues 1 and 2).
+``_matches_batched`` (exact: kernel K1, or K7 under ``NN_INDEX``) and its
+hypotheses scored by kernel K6 (``kernels.ransac_counts_batched``) on
+CUDA tensors. Its uniforms come from the same counter hash, of (seed,
+step, lane, hypothesis, sample). Point-to-plane ICP is not ported yet
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -41,6 +55,31 @@ STALL_PATIENCE = 3
 STALL_ABS_FACTOR = 100.0
 HOPELESS_MARGIN = 4.0
 COARSE_TOL_FACTOR = 30.0
+
+# The batched ICP's switches, with the JAX defaults; read at call time.
+FUSED_ICP = False         # JAX registration.FUSED_ICP: iterations on K5
+MXU_NN = False            # JAX registration.MXU_NN: non-exact 1-NN on K8
+NN_INDEX = False          # JAX registration.NN_INDEX: 1-NN on K7 + gather
+SELECT_VARIANT = "mineq"  # JAX registration.SELECT_VARIANT: K1/K5 tie rule
+
+# the JAX package's query tile and target tiles (pallas_kernels.TQ and
+# pick_target_tile), kept only as the rule of which path runs
+_QUERY_TILE = 256
+_TARGET_TILES = (8192, 4096, 2048, 1024)
+
+
+def _tile_shapes_ok(nq: int, nt: int) -> bool:
+    """The JAX package's rule for which batched-ICP path runs: its Pallas
+    kernels, and with them the ``FUSED_ICP``, ``MXU_NN`` and ``NN_INDEX``
+    paths, take ``nq`` queries and ``nt`` targets only when ``nq`` is a
+    multiple of 256 and ``nt`` of 8192, 4096, 2048 or 1024 (its
+    ``pallas_kernels.TQ`` and ``pick_target_tile``). It is not a limit of
+    the CUDA kernels, which take any shape. It is kept because the path
+    changes the answer: the fused path ignores ``target_stride`` and
+    ``reuse_final_fitness``, the MXU path selects approximately. So the
+    port takes each switch's path exactly where the JAX package on a TPU
+    would, on the CPU and on the card alike."""
+    return nq % _QUERY_TILE == 0 and any(nt % tt == 0 for tt in _TARGET_TILES)
 
 
 class ICPResult(NamedTuple):
@@ -229,14 +268,85 @@ def icp(
     return ICPResult(pose, fitness, inlier_frac, converged)
 
 
-def _matches_batched(src, smask, payload, pose, lanes, max_corr_dist):
+def _recentred(payload: torch.Tensor):
+    """(center [B, 3], payload [B, 4, Nt] moved by -center): each lane's
+    valid-target centroid (row 3 is the validity), where the expanded
+    distance form and the uncentered moment sums keep their precision."""
+    tmask = payload[:, 3] > 0.5                              # [B, Nt]
+    msum = torch.clamp(tmask.sum(dim=-1), min=1)
+    center = (
+        torch.where(tmask[:, None, :], payload[:, :3], 0.0).sum(dim=-1) / msum[:, None]
+    )                                                        # [B, 3]
+    payload_c = payload.clone()
+    payload_c[:, :3] -= center[:, :, None]
+    return center, payload_c
+
+
+def _matches_batched(src, smask, payload, pose, lanes, max_corr_dist, exact=False):
     """Batched NN pass for the lanes in ``lanes``; the others get
-    (d2=inf, sel=0) from K1 and so no good correspondence."""
+    (d2=inf, sel=0) and so no good correspondence.
+
+    As the JAX function, in its precedence: under ``MXU_NN`` (unless
+    ``exact``) and where :func:`_tile_shapes_ok` holds, kernel K8 selects
+    on coordinates recentred at each lane's valid-target centroid and the
+    winner's distance is recomputed exactly; else under ``NN_INDEX`` (and
+    the rule) kernel K7 gives the index and one gather the payload; else
+    kernel K1 with ``SELECT_VARIANT``. ``exact=True`` (the final fitness
+    pass and the RANSAC 1-NN) never takes K8.
+    """
+    nq, nt = src.shape[1], payload.shape[2]
+    rule = _tile_shapes_ok(nq, nt)
     moved = se3.transform_points(pose, src)                 # [B, N, 3]
-    d2, sel = kernels.nn_select_batched(moved, payload, lanes)
-    matched = sel[:, :3].transpose(-1, -2)                   # [B, N, 3]
+    if MXU_NN and rule and not exact:
+        # the expanded form's absolute error is eps * |coords|^2
+        center, payload_c = _recentred(payload)
+        _, sel = kernels.nn_select_batched_mxu(
+            (moved - center[:, None, :]).contiguous(), payload_c, lanes
+        )
+        sel[:, :3] += center[:, :, None]
+        matched = sel[:, :3].transpose(-1, -2)               # [B, N, 3]
+        # the exact distance of the selected pair
+        d2 = torch.where(lanes[:, None], _sq_norm3(moved - matched), float("inf"))
+    else:
+        if NN_INDEX and rule:
+            d2, idx = kernels.nn_index_batched(moved.contiguous(), payload, lanes)
+            P = payload.shape[1]
+            sel = payload.gather(2, idx.long()[:, None, :].expand(-1, P, -1))
+            # inactive lanes: index 0 gathers a real column; zero it so that
+            # no correspondence is good (the select kernels' contract)
+            sel = torch.where(lanes[:, None, None], sel, 0.0)
+        else:
+            d2, sel = kernels.nn_select_batched(
+                moved.contiguous(), payload, lanes, variant=SELECT_VARIANT
+            )
+        matched = sel[:, :3].transpose(-1, -2)               # [B, N, 3]
     good = smask & (sel[:, 3] > 0.5) & (d2 < max_corr_dist * max_corr_dist)
     return moved, d2, matched, good
+
+
+def _advance_lanes(update, ms, R, t, delta, stall, done, tol, gate_fitness):
+    """One batched ICP iteration's lane bookkeeping: the running lanes take
+    ``update`` (composed onto their pose) and its norm as their delta; a
+    lane stops at ``delta < tol``, at an armed stall, or when hopeless
+    (``ms``, its mean squared correspondence distance, far above the gate).
+    Frozen lanes keep everything. Returns (R, t, delta, stall, done)."""
+    new_pose = se3.compose(update, se3.Pose(R, t))
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    ndelta = torch.linalg.norm(update.t, dim=-1) + torch.linalg.norm(
+        update.R - eye, dim=(-2, -1)
+    )
+    R = torch.where(done[:, None, None], R, new_pose.R)
+    t = torch.where(done[:, None], t, new_pose.t)
+    stall = torch.where(
+        done, stall,
+        torch.where(ndelta < STALL_RATIO * delta, 0, stall + 1).to(torch.int32),
+    )
+    delta = torch.where(done, delta, ndelta)
+    stalled = stall >= STALL_PATIENCE
+    stall_armed = delta < STALL_ABS_FACTOR * tol
+    hopeless = stalled & (ms > HOPELESS_MARGIN * gate_fitness)
+    done = done | (delta < tol) | (stall_armed & stalled) | hopeless
+    return R, t, delta, stall, done
 
 
 def _icp_stage_batched(
@@ -253,7 +363,6 @@ def _icp_stage_batched(
     """
     B = src.shape[0]
     dtype, dev = src.dtype, src.device
-    eye = torch.eye(3, dtype=dtype, device=dev)
     R, t = R0, t0
     delta = torch.full((B,), float("inf"), dtype=dtype, device=dev)
     stall = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -262,37 +371,80 @@ def _icp_stage_batched(
     last_ng = torch.zeros((B,), dtype=dtype, device=dev)
     i = 0
     while i < max_iters and bool((~done).any()):
-        pose = se3.Pose(R, t)
         moved, d2, matched, good = _matches_batched(
-            src, smask, payload, pose, ~done, max_corr_dist
+            src, smask, payload, se3.Pose(R, t), ~done, max_corr_dist
         )
         w = good.to(dtype)
         update = kabsch(moved, matched, w)
-        new_pose = se3.compose(update, pose)
-        ndelta = torch.linalg.norm(update.t, dim=-1) + torch.linalg.norm(
-            update.R - eye, dim=(-2, -1)
-        )
         n_good = w.sum(dim=-1)
         ms = torch.where(
             n_good > 0,
             torch.where(good, d2, 0.0).sum(dim=-1) / torch.clamp(n_good, min=1.0),
             float("inf"),
         )
-        R = torch.where(done[:, None, None], R, new_pose.R)
-        t = torch.where(done[:, None], t, new_pose.t)
         last_ms = torch.where(done, last_ms, ms)
         last_ng = torch.where(done, last_ng, n_good)
-        stall = torch.where(
-            done, stall,
-            torch.where(ndelta < STALL_RATIO * delta, 0, stall + 1).to(torch.int32),
+        R, t, delta, stall, done = _advance_lanes(
+            update, ms, R, t, delta, stall, done, tol, gate_fitness
         )
-        delta = torch.where(done, delta, ndelta)
-        stalled = stall >= STALL_PATIENCE
-        stall_armed = delta < STALL_ABS_FACTOR * tol
-        hopeless = stalled & (ms > HOPELESS_MARGIN * gate_fitness)
-        done = done | (delta < tol) | (stall_armed & stalled) | hopeless
         i += 1
     return R, t, delta, done, last_ms, last_ng
+
+
+def _kabsch_from_moments(m: torch.Tensor) -> se3.Pose:
+    """Rigid update from kernel K5's moment sums m [B, 18]: :func:`kabsch`
+    on (moved, matched, w), with the weighted cross-covariance rebuilt from
+    uncentered moments (the caller recentres the problem near the origin,
+    so the subtraction is well-conditioned). Lanes with no correspondence
+    return the identity."""
+    sw_raw = m[:, kernels.M_W]
+    sw = torch.clamp(sw_raw, min=1e-9)[:, None]
+    mu_s = m[:, kernels.M_S : kernels.M_S + 3] / sw
+    mu_d = m[:, kernels.M_D : kernels.M_D + 3] / sw
+    cross = m[:, kernels.M_CROSS : kernels.M_CROSS + 9].reshape(-1, 3, 3) / sw[:, :, None]
+    H = cross - mu_s[:, :, None] * mu_d[:, None, :]
+    U, _, Vt = torch.linalg.svd(H)
+    det = torch.linalg.det(Vt.transpose(-1, -2) @ U.transpose(-1, -2))
+    D = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    R = torch.einsum("bji,bj,bkj->bik", Vt, D, U)
+    t = mu_d - torch.einsum("bij,bj->bi", R, mu_s)
+    none = sw_raw < 0.5
+    eye = torch.eye(3, dtype=m.dtype, device=m.device)
+    return se3.Pose(
+        torch.where(none[:, None, None], eye, R), torch.where(none[:, None], 0.0, t)
+    )
+
+
+def _icp_stage_batched_fused(
+    src4, payload4, R0, t0, done0, max_iters, max_corr_dist, tol,
+    gate_fitness=float("inf"),
+):
+    """Batched-lane ICP at one resolution, each iteration one kernel K5
+    pass (transform, 1-NN, gate, moment sums) and [B, 3, 3] glue; a host
+    loop that reads ``any(~done)`` once per iteration. src4 [B, 4, Nq]
+    local source rows + validity; payload4 [B, 4, Nt]. Returns (R, t,
+    delta, done); lane semantics as :func:`_icp_stage_batched`."""
+    B = src4.shape[0]
+    dtype, dev = src4.dtype, src4.device
+    R, t = R0, t0
+    delta = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    stall = torch.zeros((B,), dtype=torch.int32, device=dev)
+    done = done0
+    i = 0
+    while i < max_iters and bool((~done).any()):
+        m = kernels.icp_moments_batched(
+            src4, payload4, R.contiguous(), t.contiguous(), ~done, max_corr_dist,
+            variant=SELECT_VARIANT,
+        )
+        n_good = m[:, kernels.M_W]
+        ms = torch.where(
+            n_good > 0, m[:, kernels.M_WD2] / torch.clamp(n_good, min=1.0), float("inf")
+        )
+        R, t, delta, stall, done = _advance_lanes(
+            _kabsch_from_moments(m), ms, R, t, delta, stall, done, tol, gate_fitness
+        )
+        i += 1
+    return R, t, delta, done
 
 
 def icp_batched(
@@ -316,7 +468,16 @@ def icp_batched(
     fitness=inf). ``coarse_factor`` > 1 runs a strided coarse stage first;
     ``target_stride`` > 1 a mid-resolution stage; fitness is always from
     full resolution — the final iteration's statistics when
-    ``reuse_final_fitness``, else one more exact NN pass.
+    ``reuse_final_fitness`` (not under ``MXU_NN``), else one more exact NN
+    pass.
+
+    Under ``FUSED_ICP``, where :func:`_tile_shapes_ok` holds at full
+    resolution and, when the coarse stage runs, at ``(nq // f, nt // f)``,
+    every iteration is one kernel K5 pass on the problem recentred at each
+    lane's valid-target centroid; that path ignores ``target_stride`` and
+    ``reuse_final_fitness`` (its fitness comes from one more K5 pass over
+    ``active``) and reckons ``inlier_frac`` over the valid source points
+    of active lanes, as the JAX function does.
     """
     dtype = source.xyz.dtype
     tgt = torch.where(target.mask[..., None], target.xyz, PAD_VALUE)
@@ -327,10 +488,21 @@ def icp_batched(
     smask = source.mask
     nq, nt = src.shape[1], payload.shape[2]
     f = coarse_factor
+    coarse_ok = f > 1 and nq % f == 0 and nt % f == 0
     done0 = ~active
 
+    if (
+        FUSED_ICP
+        and _tile_shapes_ok(nq, nt)
+        and (not coarse_ok or _tile_shapes_ok(nq // f, nt // f))
+    ):
+        return _icp_batched_fused(
+            source, payload, init, active, max_iters, max_corr_dist, tol,
+            f if coarse_ok else 1, gate_fitness,
+        )
+
     R0, t0 = init.R, init.t
-    if f > 1 and nq % f == 0 and nt % f == 0:
+    if coarse_ok:
         R0, t0, _, _, _, _ = _icp_stage_batched(
             src[:, ::f].contiguous(), smask[:, ::f], payload[:, :, ::f].contiguous(),
             R0, t0, done0, max_iters, max_corr_dist,
@@ -349,12 +521,14 @@ def icp_batched(
     )
     pose = se3.Pose(R, t)
 
-    if reuse_final_fitness:
+    if reuse_final_fitness and not MXU_NN:
+        # under MXU_NN the iteration statistics carry its selection noise:
+        # the exact pass below stays (as in JAX)
         n_good = last_ng
         fitness = torch.where((n_good > 0) & active, last_ms, float("inf"))
     else:
         _moved, d2, _matched, good = _matches_batched(
-            src, smask, payload, pose, active, max_corr_dist
+            src, smask, payload, pose, active, max_corr_dist, exact=True
         )
         n_good = good.sum(dim=-1)
         fitness = torch.where(
@@ -364,6 +538,44 @@ def icp_batched(
         )
     inlier_frac = n_good / torch.clamp(smask.sum(dim=-1), min=1)
     return ICPResult(pose, fitness, inlier_frac, (delta < tol) & active)
+
+
+def _icp_batched_fused(
+    source, payload, init, active, max_iters, max_corr_dist, tol, f, gate_fitness,
+) -> ICPResult:
+    """:func:`icp_batched`'s ``FUSED_ICP`` branch: recentre at each lane's
+    valid-target centroid (moment-form Kabsch subtracts uncentered sums),
+    run the coarse stage on every f-th source and target point (f > 1),
+    then the full stage, and take the fitness from one more K5 pass over
+    ``active``."""
+    dtype = source.xyz.dtype
+    center, payload_c = _recentred(payload)
+    src4 = torch.cat(
+        [source.xyz.transpose(-1, -2), source.mask[:, None, :].to(dtype)], dim=1
+    ).contiguous()                                               # [B, 4, Nq]
+    done0 = ~active
+    R0, t0 = init.R, init.t - center
+    if f > 1:
+        R0, t0, _, _ = _icp_stage_batched_fused(
+            src4[:, :, ::f].contiguous(), payload_c[:, :, ::f].contiguous(),
+            R0, t0, done0, max_iters, max_corr_dist, COARSE_TOL_FACTOR * tol,
+            gate_fitness,
+        )
+    R, t, delta, _ = _icp_stage_batched_fused(
+        src4, payload_c, R0, t0, done0, max_iters, max_corr_dist, tol, gate_fitness,
+    )
+    m = kernels.icp_moments_batched(
+        src4, payload_c, R.contiguous(), t.contiguous(), active, max_corr_dist,
+        variant=SELECT_VARIANT,
+    )
+    n_good = m[:, kernels.M_W]
+    fitness = torch.where(
+        (n_good > 0) & active,
+        m[:, kernels.M_WD2] / torch.clamp(n_good, min=1.0),
+        float("inf"),
+    )
+    inlier_frac = n_good / torch.clamp(m[:, kernels.M_NSRC], min=1.0)
+    return ICPResult(se3.Pose(R, t + center), fitness, inlier_frac, (delta < tol) & active)
 
 
 class RansacResult(NamedTuple):
@@ -537,9 +749,10 @@ def ransac_align_batched(
     inter-robot verification; see the JAX function for the reference
     mapping).
 
-    Steps: the ungated 1-NN pass of every active lane (kernel K1; inactive
-    lanes get no correspondence); per lane ``num_hypotheses`` minimal
-    samples by the inverse CDF over the valid correspondences (a uniform
+    Steps: the ungated exact 1-NN pass of every active lane (kernel K1, or
+    K7 under ``NN_INDEX``; inactive lanes get no correspondence); per lane
+    ``num_hypotheses`` minimal samples by the inverse CDF over the valid
+    correspondences (a uniform
     times the lane's count of them, then a searchsorted over their
     cumulative count: with replacement, duplicates rejected by
     :func:`triangles_ok`); closed-form triangle fits; scoring by inlier
@@ -564,7 +777,7 @@ def ransac_align_batched(
     # from the masks
     _, _, matched, good = _matches_batched(
         src, source.mask, payload, se3.identity((B,), dtype=dtype, device=dev),
-        active, 1e6,
+        active, 1e6, exact=True,
     )                                         # matched [B, N, 3], good [B, N]
     matched = matched.contiguous()
 

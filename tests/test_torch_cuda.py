@@ -7,8 +7,9 @@ options):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts= -q
 
-The ``cuda`` tests launch the CUDA kernels (K1, K2, K3, K4, K6) and hold them against their
-plain PyTorch versions on the card; they skip without one. The input
+The ``cuda`` tests launch the CUDA kernels (K1 with both bodies, K2-K8)
+and hold them against their plain PyTorch versions on the card; they
+skip without one. The input
 makers here are shared with ``test_torch_kernels.py``, which holds the
 plain versions against the JAX package.
 """
@@ -139,6 +140,27 @@ def ransac_inputs(seed, B, H, N, thr=0.25):
     return src, matched.astype(np.float32), good, R, t, thr2
 
 
+def moments_inputs(seed, B, nq, nt, device="cpu"):
+    """K5 inputs as tensors: nn_inputs' lanes (planted exact ties, lane 1
+    inactive) as the target; the source is a noisy copy of target points,
+    in the lane's local frame, ~10% invalid; a random pose per lane
+    (rotation up to ~0.3 rad, 5 m) that maps it back near its targets.
+    Returns (src4 [B, 4, Nq], payload [B, 4, Nt], R [B, 3, 3], t [B, 3],
+    active [B])."""
+    _, payload, active = nn_inputs(seed, B, nq, nt)
+    rng = np.random.RandomState(seed + 1)
+    R = np.stack([_rodrigues(rng.normal(0, 0.15, 3)) for _ in range(B)]).astype(np.float32)
+    t = rng.uniform(-5, 5, (B, 3)).astype(np.float32)
+    pick = rng.randint(0, nt, (B, nq))
+    world = np.take_along_axis(np.swapaxes(payload[:, :3], 1, 2), pick[..., None], 1)
+    world = np.where(np.abs(world) < 1e5, world, 0.0) + rng.normal(0, 0.2, (B, nq, 3))
+    local = np.einsum("bji,bnj->bni", R, world - t[:, None])   # R^T (x - t)
+    valid = rng.rand(B, nq) > 0.1
+    src4 = np.concatenate([np.swapaxes(local, 1, 2), valid[:, None]], axis=1).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                 for x in (src4, payload, R, t, active))
+
+
 def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     kernels.reset_launch_counts()
     q, payload, active = nn_inputs(5, 3, 64, 256)
@@ -159,9 +181,21 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     counts = kernels.ransac_counts_batched(*args, 0.0625)
     assert counts.dtype == torch.int32 and counts.shape == (3, 5)
     assert torch.equal(counts, kernels.ransac_counts_batched_plain(*args, 0.0625))
+    q, payload, active = (torch.from_numpy(x) for x in nn_inputs(5, 3, 64, 256))
+    d, sel = kernels.nn_select_batched(q, payload, active, variant="argmin")
+    assert torch.equal(sel, kernels.nn_select_batched_plain(q, payload, active, "argmin")[1])
+    d7, idx = kernels.nn_index_batched(q, payload, active)
+    assert torch.equal(d7, d) and idx.dtype == torch.int32
+    d8, sel8 = kernels.nn_select_batched_mxu(q, payload, active)
+    assert torch.equal(sel8, kernels.nn_select_batched_mxu_plain(q, payload, active)[1])
+    src4, payload, R, t, active = moments_inputs(8, 3, 64, 256)
+    m = kernels.icp_moments_batched(src4, payload, R, t, active, 5.0)
+    assert m.shape == (3, kernels.M_SLOTS) and (m[1] == 0).all()
+    assert torch.equal(m, kernels.icp_moments_batched_plain(src4, payload, R, t, active, 5.0))
     assert kernels.LAUNCHES == {
         "nn_select_batched": 0, "max_image": 0, "nn_select": 0, "nearest_neighbors": 0,
-        "ransac_counts_batched": 0,
+        "ransac_counts_batched": 0, "nn_select_batched_argmin": 0, "nn_index_batched": 0,
+        "nn_select_batched_mxu": 0, "icp_moments_batched": 0,
     }
 
 
@@ -190,6 +224,19 @@ def test_wrappers_reject_bad_inputs():
         kernels.ransac_counts_batched(src, src[:, :4], good, R, t, 1.0)
     with pytest.raises(ValueError):  # K6: t of another hypothesis count
         kernels.ransac_counts_batched(src, src, good, R, t[:, :3], 1.0)
+    with pytest.raises(ValueError):  # K1: an unknown body
+        kernels.nn_select_batched(q, torch.zeros(2, 4, 16), torch.ones(2, dtype=torch.bool), "first")
+    with pytest.raises(ValueError):  # K7: a query of 2 coordinates
+        kernels.nn_index_batched(q[..., :2], torch.zeros(2, 4, 16), torch.ones(2, dtype=torch.bool))
+    with pytest.raises(ValueError):  # K8: active of another lane count
+        kernels.nn_select_batched_mxu(q, torch.zeros(2, 4, 16), torch.ones(3, dtype=torch.bool))
+    src4, payload, R, t, active = moments_inputs(9, 3, 8, 16)
+    with pytest.raises(ValueError):  # K5: the TPU kernel's 128-lane pose rows
+        kernels.icp_moments_batched(src4, payload, torch.zeros(3, 128), t, active, 1.0)
+    with pytest.raises(ValueError):  # K5: a source without its validity row
+        kernels.icp_moments_batched(src4[:, :3], payload, R, t, active, 1.0)
+    with pytest.raises(ValueError):  # K5: an unknown body
+        kernels.icp_moments_batched(src4, payload, R, t, active, 1.0, variant="first")
     z = torch.zeros(1, 16)
     with pytest.raises(ValueError):
         kernels.max_image(z, torch.zeros(1, 16, dtype=torch.int64), torch.zeros(1, 16, dtype=torch.int32), torch.ones(1, 16, dtype=torch.bool), 20, 60)
@@ -293,3 +340,66 @@ def test_k6_cuda_kernel_matches_plain(cuda_device):
             )
             assert int(half[0, 0]) == int(good[0, q : 2 * q].sum()) > 0
     assert kernels.LAUNCHES["ransac_counts_batched"] == 2 * len(shapes) - 1
+
+
+@pytest.mark.cuda
+def test_k1_argmin_and_k7_cuda_kernels_match_plain(cuda_device):
+    """d2 and the index bit-equal (the lowest index on the planted exact
+    ties), the argmin selection equal to the indexed column, at the
+    replay path's shapes and at ragged sizes."""
+    kernels.reset_launch_counts()
+    shapes = ((32, 1024, 8192), (5, 256, 2048), (5, 1000, 3000))
+    for B, nq, nt in shapes:
+        args = [torch.from_numpy(x).to(cuda_device) for x in nn_inputs(nq + B, B, nq, nt)]
+        d, sel = kernels.nn_select_batched(*args, variant="argmin")
+        d7, idx = kernels.nn_index_batched(*args)
+        d_ref, sel_ref = kernels.nn_select_batched_plain(*args, variant="argmin")
+        d7_ref, idx_ref = kernels.nn_index_batched_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(d, d_ref) and torch.equal(sel, sel_ref)
+        assert torch.equal(d7, d7_ref) and torch.equal(idx, idx_ref) and torch.equal(d7, d)
+        assert torch.isinf(d7[1]).all() and (idx[1] == 0).all() and (sel[1] == 0).all()
+    assert kernels.LAUNCHES["nn_select_batched_argmin"] == len(shapes)
+    assert kernels.LAUNCHES["nn_index_batched"] == len(shapes)
+    assert kernels.LAUNCHES["nn_select_batched"] == 0
+
+
+@pytest.mark.cuda
+def test_k8_cuda_kernel_matches_plain(cuda_device):
+    """The expanded form in the same order on both sides: d2 and the
+    selection bit-equal, on recentred coordinates (as the caller passes
+    them) and at ragged sizes."""
+    kernels.reset_launch_counts()
+    shapes = ((32, 1024, 8192), (5, 1000, 3000))
+    for B, nq, nt in shapes:
+        q, payload, active = (torch.from_numpy(x).to(cuda_device) for x in nn_inputs(nq, B, nq, nt))
+        d, sel = kernels.nn_select_batched_mxu(q, payload, active)
+        d_ref, sel_ref = kernels.nn_select_batched_mxu_plain(q, payload, active)
+        torch.cuda.synchronize()
+        assert torch.equal(d, d_ref) and torch.equal(sel, sel_ref)
+        assert torch.isinf(d[1]).all() and (sel[1] == 0).all()
+    assert kernels.LAUNCHES["nn_select_batched_mxu"] == len(shapes)
+
+
+@pytest.mark.cuda
+def test_k5_cuda_kernel_matches_plain(cuda_device):
+    """Both bodies at the replay path's two stage shapes and at a ragged
+    size: the counts (w, n_src) equal to the plain version's, every sum
+    within 2e-6 of its terms' absolute mass of their exact sum (the
+    kernel's float32 order rounds each term at most 22 times:
+    chip_smoke.py's K5_MASS_TOL), the inactive lane zero."""
+    kernels.reset_launch_counts()
+    shapes = ((32, 1024, 8192), (32, 256, 2048), (5, 1000, 3000))
+    for B, nq, nt in shapes:
+        args = moments_inputs(B + nq, B, nq, nt, cuda_device)
+        for variant in ("mineq", "argmin"):
+            m = kernels.icp_moments_batched(*args, 3.0, variant=variant)
+            ref = kernels.icp_moments_batched_plain(*args, 3.0, variant=variant)
+            torch.cuda.synchronize()
+            for k in (kernels.M_W, kernels.M_NSRC):
+                assert torch.equal(m[:, k], ref[:, k])
+            terms = kernels.icp_moments_terms_plain(*args, 3.0, variant=variant).double()
+            err = (m.double() - terms.sum(dim=1)).abs()
+            assert (err <= 2e-6 * terms.abs().sum(dim=1)).all()
+            assert (m[1] == 0).all() and (m[0, kernels.M_W] > nq // 4)
+    assert kernels.LAUNCHES["icp_moments_batched"] == 2 * len(shapes)
