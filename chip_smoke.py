@@ -11,11 +11,14 @@ Phases (any failure raises, and the script exits non-zero):
    limit;
 2. builds the CUDA kernels from ``scl_slam_tpu_torch/csrc`` with nvcc and
    prints the build seconds (beside those of one nvcc call of the same
-   sources and flags) and ptxas' register/shared-memory report;
+   sources and flags) and ptxas' register/shared-memory report (the split
+   kernels of K1, K7, K4 and K3 are the ``nn_split_kernel`` entries);
 3. K1 (batched 1-NN + payload select) against its plain PyTorch version on
    the card at both ICP shapes of the replay path, with inactive lanes and
    planted exact ties: d2 bit-equal, selection equal up to the stated tie
-   tolerance; kernel and plain times by CUDA events;
+   tolerance; kernel and plain times by CUDA events; the launch geometry
+   (blocks, warps per SM, slices), the time beside PERF.md's PR 5 row, and
+   the share of the bound beside the 50% issue ceiling;
 4. K2 (max image) against its plain version at 32 x 65,536 points into
    20 x 60 bins: bit-equal; both times;
 5. the replay slice at the bench configuration (bench.py's pipeline
@@ -31,7 +34,8 @@ Phases (any failure raises, and the script exits non-zero):
 7. K4 (solo 1-NN + payload select, lowest index on exact ties) against its
    plain version on the card at both ICP shapes of the live path (256 x
    4,096 and 1,024 x 16,384, P = 4) and at P = 8, with planted exact ties
-   and padded targets: d2 bit-equal, selection equal;
+   and padded targets: d2 bit-equal, selection equal; the geometry, the PR 5
+   row and the share of the bound as in phase 3;
 8. the live demo ``python -m scl_slam_tpu_torch.run --dataset synthetic``
    on the card with its defaults (120 frames): it must close loops and
    end with an ATE below odometry-only; then the same 60-frame run on the
@@ -47,7 +51,8 @@ Phases (any failure raises, and the script exits non-zero):
    its plain version on the card at 256 x 4,096, 4,096 x 8,192 (the
    default configuration's verification) and 4,096 x 16,384 (the
    kitti_velodyne widths), with planted exact ties and padded targets: d2
-   bit-equal, index equal;
+   bit-equal, index equal; the geometry, the PR 5 row and the share of the
+   bound as in phase 3;
 11. the inter-robot path: ``python -m scl_slam_tpu_torch.run_multi --robots
    2`` with its defaults (120 frames, the default ``SlamConfig``) on the
    card, with every inter-robot layer timed alone (a synchronize before
@@ -197,6 +202,38 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FP32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# PERF.md's rows of PR 5 (NVIDIA H100 80GB HBM3, 700.00 W; CUDA-graph
+# replays): the times of K1, K7, K4 and K3 before the split-target design
+PR5_MS = {
+    "K1-mineq full": 0.4269, "K1-mineq coarse": 0.1060,
+    "K1-argmin replay": 0.1847, "K1-argmin fleet_ransac": 0.1369,
+    "K7 replay": 0.1421, "K7 fleet_ransac": 0.0993,
+    "K4 full": 0.0188, "K4 coarse": 0.0119, "K4 full_p8": 0.0190,
+    "K3 full": 0.0273, "K3 small": 0.0123, "K3 kitti": 0.0477,
+}
+
+
+def split_geometry(torch, g, lanes: int, active_lanes: int) -> str:
+    """The launch of a split-target kernel (csrc/nn_split.cuh): blocks,
+    the working ones (of active lanes), their warps per SM, and the
+    slices."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    working = g.q_groups * g.slices * active_lanes
+    return (f"{g.q_groups * g.slices * lanes} blocks ({working} working) of "
+            f"{g.threads // 32} warps, {32 * g.rq} queries a block, "
+            f"{working * g.threads / 32 / sms:.1f} warps/SM; {g.slices} slices of "
+            f"{g.slice_len} targets, {-(-g.slice_len // (g.threads // 32))} a warp")
+
+
+def versus_pr5(key: str, ms: float, bound_ms: float) -> str:
+    """The time beside PERF.md's PR 5 row and the share of the bound. The
+    build's -fmad=false makes each of the 9 operations of a pair its own
+    instruction, so 50% of the stated FP32 bound is the issue ceiling."""
+    old = PR5_MS[key]
+    return (f"PR 5 row {old:.4f} ms, now {old / ms:.2f}x as fast; "
+            f"{100 * bound_ms / ms:.1f}% of the bound (issue ceiling 50%)")
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +409,9 @@ def phase_k1(torch, kernels) -> dict:
             f"(tol {tol:.3g}, {n_diff} elements differ), kernel {ms:.4f} ms "
             f"(eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"[3]   K1 {label} geometry: "
+            f"{split_geometry(torch, kernels.k1_geometry(B, nq, nt), B, n_active)}; "
+            f"{versus_pr5('K1-mineq ' + label, ms, bound_ms)}")
         res[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by}
     return res
@@ -728,8 +768,11 @@ def phase_k4(torch, kernels) -> dict:
         bound_ms, bound_by = bound(4 * (nq * 3 + P * nt + nq + P * nq), 9 * nq * nt)
         log(f"[7] K4 {label} {nq}x{nt} P={P}: d2 bit-equal, selection equal "
             f"({int(on_grid.sum())} planted equidistant ties), kernel {ms:.4f} ms "
-            f"(eager call {call_ms:.4f} ms, chunking {kernels._k4_chunking(nq, nt)}), "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"(eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"[7]   K4 {label} geometry: "
+            f"{split_geometry(torch, kernels.k4_geometry(nq, nt), 1, 1)}; "
+            f"{versus_pr5('K4 ' + label, ms, bound_ms)}")
         res[label] = {"max_abs_err": float((sel - sel_p).abs().max().item()), "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     return res
@@ -956,8 +999,11 @@ def phase_k3(torch, kernels) -> dict:
         plain_ms = time_graph(torch, lambda: kernels.nearest_neighbors_plain(q, t), reps=5)
         bound_ms, bound_by = bound(4 * (nq * 3 + nt * 3 + nq + nq), 9 * nq * nt)
         log(f"[10] K3 {label} {nq}x{nt}: d2 bit-equal, index equal ({int(on_grid.sum())} planted "
-            f"equidistant ties), kernel {ms:.4f} ms (eager call {call_ms:.4f} ms, chunking "
-            f"{kernels._k4_chunking(nq, nt)}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"equidistant ties), kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"[10]   K3 {label} geometry: "
+            f"{split_geometry(torch, kernels.k4_geometry(nq, nt), 1, 1)}; "
+            f"{versus_pr5('K3 ' + label, ms, bound_ms)}")
         res[label] = {"max_abs_err": float((d - d_p).abs().max().item()), "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     return res
@@ -1767,6 +1813,9 @@ def phase_k7(torch, kernels) -> dict:
             f"K7 kernel {k7[0]:.4f} ms (eager {k7[1]:.4f} ms), plain {k7[2]:.4f} ms, bound "
             f"{b7[0]:.4f} ms ({b7[1]}); K1-argmin kernel {k1a[0]:.4f} ms (eager {k1a[1]:.4f} "
             f"ms), plain {k1a[2]:.4f} ms, bound {b1[0]:.4f} ms ({b1[1]})")
+        log(f"[19]   geometry: {split_geometry(torch, kernels.k1_geometry(B, nq, nt), B, n_active)}; "
+            f"K7 {versus_pr5('K7 ' + label, k7[0], b7[0])}; "
+            f"K1-argmin {versus_pr5('K1-argmin ' + label, k1a[0], b1[0])}")
         res[label] = {
             "k7": {"max_abs_err": float((idx - idx_p).abs().max().item()), "ms": k7[0],
                    "plain_ms": k7[2], "bound_ms": b7[0], "bound_by": b7[1]},

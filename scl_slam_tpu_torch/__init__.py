@@ -8,12 +8,19 @@ C++ (``csrc/``, bound in ``ops/kernels.py``). This package never imports
 ``jax``.
 
 Ported so far: the keyframe replay path (``Mapper.replay``), the live
-single-robot path (``Mapper.add_frame`` / ``spin_once`` / ``optimize``,
-driven by ``python -m scl_slam_tpu_torch.run``), the pose-graph solve, and
-the decentralized inter-robot path (descriptors over a bus, RANSAC
-verification by RPC, driven by ``python -m scl_slam_tpu_torch.run_multi``).
-``Mapper`` runs on the GPU unless it is given ``device="cpu"``. What is
-still to come is listed in ``ROADMAP.md``.
+single-robot path (``Mapper.add_frame`` / ``add_frames`` / ``spin_once`` /
+``optimize``, driven by ``python -m scl_slam_tpu_torch.run``), the
+pose-graph solve, the decentralized inter-robot path (descriptors over a
+bus, RANSAC verification by RPC, driven by ``python -m
+scl_slam_tpu_torch.run_multi``), the centralized fleet (``FleetMapper``,
+batched RANSAC; ``run_multi --fleet``) with keyframe eviction
+(``runtime/eviction.py``), and the JAX package's batched-ICP switches
+(``FUSED_ICP``, ``NN_INDEX``, ``MXU_NN``, ``SELECT_VARIANT`` in
+``ops/registration.py``). Every TPU kernel has its CUDA counterpart; the
+batched 1-NN (K1, K7) and the solo 1-NN (K4, K3) split the target axis
+across the card (``csrc/nn_split.cuh``). ``Mapper`` runs on the GPU unless
+it is given ``device="cpu"``. What is still to come is listed in
+``ROADMAP.md``.
 """
 
 __version__ = "0.1.0"

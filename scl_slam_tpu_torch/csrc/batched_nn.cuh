@@ -1,5 +1,5 @@
-// The streaming 1-NN loop shared by the batched kernels K1 (both bodies),
-// K7 (csrc/nn_select_batched.cu) and K5 (csrc/icp_moments.cu).
+// The streaming 1-NN loop of K5 (csrc/icp_moments.cu), and the block and
+// tile sizes that K8 (csrc/nn_select_batched.cu) also uses.
 //
 // One thread per query keeps its running nearest target in registers; the
 // lane's target streams through shared memory in [rows, kNnTile] tiles,
@@ -24,14 +24,12 @@ constexpr int kNnRows = 4;       // payload rows: target xyz + validity
 enum class Select {
   kMinEq,   // payload averaged over every target at exactly the min d2
   kArgmin,  // payload of the lowest-index target at the min d2
-  kIndex,   // lowest index at the min d2, no payload
 };
 
 struct Nearest {
   float best;
   float s0, s1, s2, s3;  // payload (its sum for kMinEq)
   int cnt;               // tied targets (kMinEq)
-  int idx;               // kArgmin, kIndex
 };
 
 // No target yet. (A free device function: CUDART_INF_F is a device
@@ -41,7 +39,6 @@ __device__ __forceinline__ Nearest no_target() {
   r.best = CUDART_INF_F;
   r.s0 = r.s1 = r.s2 = r.s3 = 0.0f;
   r.cnt = 0;
-  r.idx = 0;
   return r;
 }
 
@@ -61,13 +58,12 @@ template <Select kSel>
 __device__ void stream_nearest(float qx, float qy, float qz,
                                const float* __restrict__ pl, int nt,
                                float (*tile)[kNnTile], Nearest& r) {
-  constexpr int kLoad = kSel == Select::kIndex ? 3 : kNnRows;
   for (int t0 = 0; t0 < nt; t0 += kNnTile) {
     const int n = min(kNnTile, nt - t0);
     __syncthreads();  // previous tile fully consumed
     for (int k = threadIdx.x; k < n; k += blockDim.x) {
 #pragma unroll
-      for (int p = 0; p < kLoad; ++p) {
+      for (int p = 0; p < kNnRows; ++p) {
         tile[p][k] = pl[static_cast<size_t>(p) * nt + t0 + k];
       }
     }
@@ -94,13 +90,10 @@ __device__ void stream_nearest(float qx, float qy, float qz,
         }
       } else if (d < r.best) {  // strict: the lowest index keeps a tie
         r.best = d;
-        r.idx = t0 + j;
-        if constexpr (kSel == Select::kArgmin) {
-          r.s0 = tx;
-          r.s1 = ty;
-          r.s2 = tz;
-          r.s3 = tile[3][j];
-        }
+        r.s0 = tx;
+        r.s1 = ty;
+        r.s2 = tz;
+        r.s3 = tile[3][j];
       }
     }
   }

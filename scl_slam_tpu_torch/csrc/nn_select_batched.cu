@@ -20,7 +20,7 @@
 //   validity), active [B] int32; lanes with active == 0 write (inf, 0)
 //   and do no work.
 //   K1 d[b, q] = min over targets of ((dx*dx) + (dy*dy)) + (dz*dz) (each
-//      step rounded to f32: csrc/batched_nn.cuh), bit-equal to the plain
+//      step rounded to f32: csrc/nn_split.cuh), bit-equal to the plain
 //      version and to the TPU kernel's exact per-coordinate f32;
 //      sel[b, :, q] = mineq: the payload column of the nearest target,
 //      averaged over every target at exactly that d (the TPU kernel
@@ -39,82 +39,40 @@
 //      cancellation: its d is for selection order only, the caller
 //      recomputes the winner's exact distance.
 //
-// What bounds them on the H100: arithmetic. Each (query, target) pair
-// costs 9 FP32 operations in K1 and K7 (three subtract-multiply steps, two
-// adds, a compare) and 9 in K8 (three multiplies and two adds for the
+// What bounds them on the H100: instruction issue. Each (query, target)
+// pair costs 9 FP32 operations in K1 and K7 (three subtract-multiply steps,
+// two adds, a compare) and 9 in K8 (three multiplies and two adds for the
 // cross term, the doubling, a subtract, an add, a compare; qq and tt are
-// per point). The tensor cores cannot give an exact per-coordinate
-// distance, and the TPU kernel's MXU cross term becomes plain FP32 work
-// here, so K8 saves nothing on this card. The replay path's full-resolution
-// pass is 32 x 1024 x 8192 = 0.27 G pairs.
+// per point), each its own instruction (-fmad=false): half the stated FP32
+// bound, which counts a multiply-add as two, is the ceiling. The tensor
+// cores cannot give an exact per-coordinate distance, and the TPU kernel's
+// MXU cross term becomes plain FP32 work here, so K8 saves nothing on this
+// card. The replay path's full-resolution pass is 32 x 1024 x 8192 = 0.27 G
+// pairs.
 //
-// Design: grid (query blocks, lanes); one thread per query with its running
-// best in registers; the lane's target streams through shared memory
-// (csrc/batched_nn.cuh). K8 adds each target's tt to its tile as a fifth
-// row, computed once where the tile is loaded. Inactive lanes return before
-// touching the target.
+// Design: K1 (both bodies) and K7 run the split-target 1-NN of
+// csrc/nn_split.cuh: a grid of (query groups, target slices, lanes), each
+// warp walking a contiguous part of its slice for 64 queries held two to a
+// lane, the min of each group of 8 targets taken by fminf before one
+// compare, double-buffered tiles staged by cp.async, the parts merged in
+// shared memory and the slices by the last block to arrive, all in
+// ascending order. The scratch (partials, arrival counters) may be null
+// with one slice. K8 runs one thread per query on a grid of (query blocks,
+// lanes), the lane's target streaming through shared memory with each
+// target's tt added to its tile as a fifth row, computed once where the
+// tile is loaded. Inactive lanes return before touching the target.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #include "batched_nn.cuh"
+#include "nn_split.cuh"
 
 namespace {
 
 using scl::kNnRows;
 using scl::kNnThreads;
 using scl::kNnTile;
-using scl::Select;
-
-template <Select kSel>
-__global__ void __launch_bounds__(kNnThreads)
-nn_select_batched_kernel(const float* __restrict__ query,
-                         const float* __restrict__ payload,
-                         const int32_t* __restrict__ active,
-                         float* __restrict__ d_out,
-                         float* __restrict__ sel_out,
-                         int32_t* __restrict__ idx_out, int nq, int nt) {
-  __shared__ float tile[kNnRows][kNnTile];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * kNnThreads + threadIdx.x;
-  const bool in_range = i < nq;
-  float* d_lane = d_out + static_cast<size_t>(b) * nq;
-
-  if (active[b] == 0) {  // uniform across the block
-    if (in_range) {
-      d_lane[i] = CUDART_INF_F;
-      if constexpr (kSel == Select::kIndex) {
-        idx_out[static_cast<size_t>(b) * nq + i] = 0;
-      } else {
-        float* sel_lane = sel_out + static_cast<size_t>(b) * kNnRows * nq;
-        for (int p = 0; p < kNnRows; ++p) sel_lane[p * nq + i] = 0.0f;
-      }
-    }
-    return;
-  }
-
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  if (in_range) {
-    const float* q = query + (static_cast<size_t>(b) * nq + i) * 3;
-    qx = q[0];
-    qy = q[1];
-    qz = q[2];
-  }
-  scl::Nearest r = scl::no_target();
-  scl::stream_nearest<kSel>(qx, qy, qz,
-                            payload + static_cast<size_t>(b) * kNnRows * nt,
-                            nt, tile, r);
-  if (!in_range) return;
-  d_lane[i] = r.best;
-  if constexpr (kSel == Select::kIndex) {
-    idx_out[static_cast<size_t>(b) * nq + i] = r.idx;
-  } else {
-    float s[kNnRows];
-    scl::selected<kSel>(r, s);
-    float* sel_lane = sel_out + static_cast<size_t>(b) * kNnRows * nq;
-    for (int p = 0; p < kNnRows; ++p) sel_lane[p * nq + i] = s[p];
-  }
-}
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
                                       float by, float bz) {
@@ -193,36 +151,77 @@ nn_select_batched_mxu_kernel(const float* __restrict__ query,
 
 }  // namespace
 
-// variant 0: mineq, 1: argmin
+// K1. part_d, part_i: scratch of [batch, slices, nq]; part_s: [batch,
+// slices, 4, nq] (mineq only); arrivals: [batch, query groups] zeros, left
+// zero; all may be null with one slice. variant 0: mineq, 1: argmin.
 extern "C" int scl_nn_select_batched(const float* query, const float* payload,
                                      const int32_t* active, float* d_out,
-                                     float* sel_out, int batch, int nq, int nt,
-                                     int variant, int device, void* stream) {
+                                     float* sel_out, float* part_d,
+                                     int32_t* part_i, float* part_s,
+                                     uint32_t* arrivals, int batch, int nq,
+                                     int nt, int variant, int threads, int rq,
+                                     int slice_len, int slices, int device,
+                                     void* stream) {
+  if (!scl::split_geometry_ok(nt, threads, slice_len, slices)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nq + kNnThreads - 1) / kNnThreads, batch);
+  scl::SplitArgs a{};
+  a.query = query;
+  a.target = {payload, static_cast<size_t>(kNnRows) * nt, static_cast<size_t>(nt), 1};
+  a.active = active;
+  a.nq = nq;
+  a.nt = nt;
+  a.slice_len = slice_len;
+  a.slices = slices;
+  a.part_d = part_d;
+  a.part_i = part_i;
+  a.part_s = part_s;
+  a.arrivals = arrivals;
+  a.d_out = d_out;
+  a.sel_out = sel_out;
+  a.sel_rows = kNnRows;
+  a.idx_out = nullptr;
+  a.clamp = false;
   auto s = static_cast<cudaStream_t>(stream);
-  if (variant == 0) {
-    nn_select_batched_kernel<Select::kMinEq><<<grid, kNnThreads, 0, s>>>(
-        query, payload, active, d_out, sel_out, nullptr, nq, nt);
-  } else {
-    nn_select_batched_kernel<Select::kArgmin><<<grid, kNnThreads, 0, s>>>(
-        query, payload, active, d_out, sel_out, nullptr, nq, nt);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      variant == 0 ? scl::launch_split<scl::Pick::kTieMean>(a, batch, threads, rq, s)
+                   : scl::launch_split<scl::Pick::kLowest>(a, batch, threads, rq, s));
 }
 
+// K7: the index at K1's d2, no payload. Scratch as K1's argmin body.
 extern "C" int scl_nn_index_batched(const float* query, const float* payload,
                                     const int32_t* active, float* d_out,
-                                    int32_t* idx_out, int batch, int nq, int nt,
+                                    int32_t* idx_out, float* part_d,
+                                    int32_t* part_i, uint32_t* arrivals,
+                                    int batch, int nq, int nt, int threads,
+                                    int rq, int slice_len, int slices,
                                     int device, void* stream) {
+  if (!scl::split_geometry_ok(nt, threads, slice_len, slices)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nq + kNnThreads - 1) / kNnThreads, batch);
-  nn_select_batched_kernel<Select::kIndex>
-      <<<grid, kNnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          query, payload, active, d_out, nullptr, idx_out, nq, nt);
-  return static_cast<int>(cudaGetLastError());
+  scl::SplitArgs a{};
+  a.query = query;
+  a.target = {payload, static_cast<size_t>(kNnRows) * nt, static_cast<size_t>(nt), 1};
+  a.active = active;
+  a.nq = nq;
+  a.nt = nt;
+  a.slice_len = slice_len;
+  a.slices = slices;
+  a.part_d = part_d;
+  a.part_i = part_i;
+  a.part_s = nullptr;
+  a.arrivals = arrivals;
+  a.d_out = d_out;
+  a.sel_out = nullptr;
+  a.sel_rows = 0;
+  a.idx_out = idx_out;
+  a.clamp = false;
+  return static_cast<int>(scl::launch_split<scl::Pick::kLowest>(
+      a, batch, threads, rq, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int scl_nn_select_batched_mxu(const float* query,
@@ -242,3 +241,5 @@ extern "C" int scl_nn_select_batched_mxu(const float* query,
 extern "C" const char* scl_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+

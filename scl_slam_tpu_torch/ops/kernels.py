@@ -6,16 +6,16 @@ paths, their plain PyTorch versions, and the build that binds them
 kernel    replaces (TPU, Pallas)          source
 ========  ==============================  ===================================
 K1        ``nn_select_batched_pallas``    ``csrc/nn_select_batched.cu``
-          (variants ``mineq`` and         (the streaming loop in
-          ``argmin``)                     ``csrc/batched_nn.cuh``)
+          (variants ``mineq`` and         (the split-target loop in
+          ``argmin``)                     ``csrc/nn_split.cuh``)
 K2        ``max_image_pallas`` (exact     ``csrc/max_image.cu``
           here; see the source)
 K3        ``nearest_neighbors_pallas``    ``csrc/nn_select.cu`` (shares
-                                          K4's first pass)
+                                          K4's kernel)
 K4        ``nn_select_pallas``            ``csrc/nn_select.cu``
-K5        ``icp_moments_batched_pallas``  ``csrc/icp_moments.cu``
-          (variants ``mineq`` and
-          ``argmin``)
+K5        ``icp_moments_batched_pallas``  ``csrc/icp_moments.cu`` (the
+          (variants ``mineq`` and         streaming loop in
+          ``argmin``)                     ``csrc/batched_nn.cuh``)
 K6        ``ransac_counts_batched_pallas``  ``csrc/ransac_counts.cu``
 K7        ``nn_index_batched_pallas``     ``csrc/nn_select_batched.cu``
 K8        ``nn_select_batched_mxu_pallas``  ``csrc/nn_select_batched.cu``
@@ -32,8 +32,13 @@ kernels are compiled on first use with ``nvcc`` (for ``sm_90a``, with
 all started together, then one link) into a shared library with a plain C
 interface under ``_build/``, and loaded with ``ctypes``.
 ``LAUNCHES`` counts the kernel launches per wrapper (K1 per body), so a
-run can show that it went through them (K3, K4 and K5 are two launches
-each, a partial pass and a reduction, counted as one call).
+run can show that it went through them (K5 is two launches, a partial
+pass and a reduction, counted as one call).
+
+K1, K7, K4 and K3 split the target axis (``csrc/nn_split.cuh``): their
+launch geometry comes from :func:`nn_split_geometry`, and with more than
+one slice the last block of a query group to arrive merges them, counted
+on arrival counters that each entry point owns (:func:`_arrivals`).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -151,9 +157,9 @@ def load_library() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.scl_nn_select_batched.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+            lib.scl_nn_select_batched.argtypes = [p] * 9 + [i] * 9 + [p]
             lib.scl_nn_select_batched.restype = i
-            lib.scl_nn_index_batched.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.scl_nn_index_batched.argtypes = [p] * 8 + [i] * 8 + [p]
             lib.scl_nn_index_batched.restype = i
             lib.scl_nn_select_batched_mxu.argtypes = [p, p, p, p, p, i, i, i, i, p]
             lib.scl_nn_select_batched_mxu.restype = i
@@ -163,9 +169,9 @@ def load_library() -> ctypes.CDLL:
             lib.scl_icp_moments_batched.restype = i
             lib.scl_max_image.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.scl_max_image.restype = i
-            lib.scl_nn_select.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.scl_nn_select.argtypes = [p] * 7 + [i] * 8 + [p]
             lib.scl_nn_select.restype = i
-            lib.scl_nearest_neighbors.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.scl_nearest_neighbors.argtypes = [p] * 7 + [i] * 7 + [p]
             lib.scl_nearest_neighbors.restype = i
             lib.scl_ransac_counts_batched.argtypes = [
                 p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p,
@@ -190,6 +196,106 @@ def _require(cond: bool, msg: str) -> None:
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# The split-target 1-NN of K1, K7, K4 and K3 (csrc/nn_split.cuh)
+# ---------------------------------------------------------------------------
+
+# streaming multiprocessors of an H100 SXM
+_SMS = 132
+
+
+class SplitGeometry(NamedTuple):
+    """A launch of the split-target 1-NN: a grid of (q_groups, slices,
+    lanes) blocks of ``threads`` threads; a block holds 32 x ``rq`` queries
+    (``rq`` a lane) and the targets [s * slice_len, min(nt, (s + 1) *
+    slice_len)) of its slice s, which its warps split in contiguous parts."""
+
+    threads: int
+    rq: int
+    q_groups: int
+    slice_len: int
+    slices: int
+
+
+# (warps a block, queries a lane, warps to aim for, fewest targets a warp),
+# chosen by scripts/torch_nn_split_sweep.py on an H100: K1 and K7 at about
+# 48 warps an SM (all that fit); K4 and K3 at about 16 (more slices cost
+# more in the merge than they gain in the walk), and in smaller blocks below
+# 4 M pairs (the live path's coarse pass), where a launch is mostly its
+# fixed costs
+K1_SPLIT = (8, 2, 48 * _SMS, 64)
+K4_SPLIT = (16, 2, 2048, 32)
+K4_SPLIT_SMALL = (4, 2, 2048, 64)
+_K4_SMALL_PAIRS = 1 << 22
+
+
+def nn_split_geometry(
+    lanes: int, nq: int, nt: int, warps: int, rq: int, want_warps: int,
+    min_per_warp: int,
+) -> SplitGeometry:
+    """The launch geometry for ``lanes`` x ``nq`` queries against ``nt``
+    targets (all > 0): enough target slices that the grid reaches about
+    ``want_warps`` warps, none giving a warp fewer than ``min_per_warp``
+    targets where the target allows one slice more, and none empty. Read
+    from the shapes alone: lanes that turn out inactive on the device
+    still count."""
+    q_groups = -(-nq // (32 * rq))
+    slices = max(1, min(-(-want_warps // (q_groups * lanes * warps)),
+                        nt // (min_per_warp * warps)))
+    slice_len = -(-nt // slices)
+    return SplitGeometry(32 * warps, rq, q_groups, slice_len, -(-nt // slice_len))
+
+
+def k1_geometry(B: int, nq: int, nt: int) -> SplitGeometry:
+    """K1's and K7's launch geometry at [B, Nq] x [B, ., Nt]."""
+    return nn_split_geometry(B, nq, nt, *K1_SPLIT)
+
+
+def k4_geometry(nq: int, nt: int) -> SplitGeometry:
+    """K4's and K3's launch geometry at [Nq] x [Nt]."""
+    split = K4_SPLIT if nq * nt >= _K4_SMALL_PAIRS else K4_SPLIT_SMALL
+    return nn_split_geometry(1, nq, nt, *split)
+
+
+# arrival counters of each entry point, per device: the kernel leaves them
+# at zero (atomicInc wraps), so they are zeroed once, when made
+_ARRIVALS: dict[tuple[str, torch.device], torch.Tensor] = {}
+
+
+def _arrivals(owner: str, n: int, device: torch.device) -> torch.Tensor:
+    """At least ``n`` arrival counters that only ``owner``'s launches use
+    (two entry points never share one: a launch of one could otherwise see
+    the other's arrivals)."""
+    key = (owner, device)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ARRIVALS[key] = buf
+    return buf
+
+
+def _split_scratch(lanes: int, nq: int, g: SplitGeometry, device, sums: bool,
+                   owner: str) -> list:
+    """The scratch of one launch as [part_d, part_i, part_s, arrivals]:
+    None where the launch reads none (all of it with one slice; part_s but
+    for the tie average). The tensors may be freed once the launch is
+    queued: the allocator reuses memory in stream order."""
+    if g.slices == 1:
+        return [None] * 4
+    return [
+        torch.empty((lanes, g.slices, nq), dtype=torch.float32, device=device),
+        torch.empty((lanes, g.slices, nq), dtype=torch.int32, device=device),
+        torch.empty((lanes, g.slices, 4, nq), dtype=torch.float32, device=device)
+        if sums else None,
+        _arrivals(owner, lanes * g.q_groups, device),
+    ]
+
+
+def _ptrs(tensors) -> list:
+    """Device pointers for ctypes, None for an absent tensor."""
+    return [x.data_ptr() if x is not None else None for x in tensors]
 
 
 # ---------------------------------------------------------------------------
@@ -365,17 +471,26 @@ def nn_select_batched(
     if query.device.type == "cpu":
         return nn_select_batched_plain(query, payload, active, variant)
     _check_batched_nn_cuda(query, payload)
+    return _launch_nn_select_batched(query, payload, active, variant)
+
+
+def _launch_nn_select_batched(query, payload, active, variant, geom=None):
+    """K1's launch on checked CUDA inputs, at ``geom`` (default
+    :func:`k1_geometry`)."""
     B, nq, nt = query.shape[0], query.shape[1], payload.shape[2]
-    act = active.to(torch.int32).contiguous()
-    d2 = torch.empty((B, nq), dtype=torch.float32, device=query.device)
-    sel = torch.empty((B, 4, nq), dtype=torch.float32, device=query.device)
+    dev = query.device
+    d2 = torch.empty((B, nq), dtype=torch.float32, device=dev)
+    sel = torch.empty((B, 4, nq), dtype=torch.float32, device=dev)
     if B == 0 or nq == 0:
         return d2, sel
+    g = geom or k1_geometry(B, nq, nt)
+    act = active.to(torch.int32).contiguous()
+    scratch = _split_scratch(B, nq, g, dev, variant == "mineq", "nn_select_batched")
     lib = load_library()
     rc = lib.scl_nn_select_batched(
-        query.data_ptr(), payload.data_ptr(), act.data_ptr(),
-        d2.data_ptr(), sel.data_ptr(), B, nq, nt, VARIANTS.index(variant),
-        query.device.index or 0, _stream(query.device),
+        query.data_ptr(), payload.data_ptr(), act.data_ptr(), d2.data_ptr(),
+        sel.data_ptr(), *_ptrs(scratch), B, nq, nt, VARIANTS.index(variant),
+        g.threads, g.rq, g.slice_len, g.slices, dev.index or 0, _stream(dev),
     )
     _check_launch(lib, rc, "nn_select_batched")
     LAUNCHES["nn_select_batched" if variant == "mineq" else "nn_select_batched_argmin"] += 1
@@ -393,16 +508,26 @@ def nn_index_batched(
     if query.device.type == "cpu":
         return nn_index_batched_plain(query, payload, active)
     _check_batched_nn_cuda(query, payload)
+    return _launch_nn_index_batched(query, payload, active)
+
+
+def _launch_nn_index_batched(query, payload, active, geom=None):
+    """K7's launch on checked CUDA inputs, at ``geom`` (default
+    :func:`k1_geometry`)."""
     B, nq, nt = query.shape[0], query.shape[1], payload.shape[2]
-    act = active.to(torch.int32).contiguous()
-    d2 = torch.empty((B, nq), dtype=torch.float32, device=query.device)
-    idx = torch.empty((B, nq), dtype=torch.int32, device=query.device)
+    dev = query.device
+    d2 = torch.empty((B, nq), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, nq), dtype=torch.int32, device=dev)
     if B == 0 or nq == 0:
         return d2, idx
+    g = geom or k1_geometry(B, nq, nt)
+    act = active.to(torch.int32).contiguous()
+    part_d, part_i, _, arrivals = _split_scratch(B, nq, g, dev, False, "nn_index_batched")
     lib = load_library()
     rc = lib.scl_nn_index_batched(
         query.data_ptr(), payload.data_ptr(), act.data_ptr(), d2.data_ptr(),
-        idx.data_ptr(), B, nq, nt, query.device.index or 0, _stream(query.device),
+        idx.data_ptr(), *_ptrs((part_d, part_i, arrivals)), B, nq, nt,
+        g.threads, g.rq, g.slice_len, g.slices, dev.index or 0, _stream(dev),
     )
     _check_launch(lib, rc, "nn_index_batched")
     LAUNCHES["nn_index_batched"] += 1
@@ -678,14 +803,6 @@ def max_image(
 # K4: solo 1-NN + payload selection (argmin ties)
 # ---------------------------------------------------------------------------
 
-# pass 1 of the CUDA kernel: 128 queries per block (csrc/nn_select.cu)
-_K4_QUERY_BLOCK = 128
-# blocks of pass 1 to aim for: two per SM of an H100 (132 SMs)
-_K4_TARGET_BLOCKS = 264
-# fewest targets per chunk, so the shared-memory tile loads stay amortized
-_K4_MIN_CHUNK = 128
-
-
 def nn_select_plain(
     query: torch.Tensor, payload: torch.Tensor, chunk: int | None = None
 ):
@@ -729,16 +846,6 @@ def nn_select_plain(
     return d2, sel
 
 
-def _k4_chunking(nq: int, nt: int) -> tuple[int, int]:
-    """(targets per chunk, chunks) for pass 1: enough blocks to fill the
-    card, no chunk below ``_K4_MIN_CHUNK`` targets."""
-    q_blocks = -(-nq // _K4_QUERY_BLOCK)
-    want = -(-_K4_TARGET_BLOCKS // q_blocks)
-    chunks = max(1, min(want, nt // _K4_MIN_CHUNK))
-    chunk = -(-nt // chunks)
-    return chunk, -(-nt // chunk)
-
-
 def nn_select(query: torch.Tensor, payload: torch.Tensor):
     """K4 (see ``csrc/nn_select.cu``): 1-NN of query [Nq, 3] among payload
     rows 0-2 of [P, Nt], with the winner's payload column (lowest index on
@@ -764,16 +871,24 @@ def nn_select(query: torch.Tensor, payload: torch.Tensor):
             torch.full((nq,), float("inf"), dtype=torch.float32, device=dev),
             torch.zeros((P, nq), dtype=torch.float32, device=dev),
         )
+    return _launch_nn_select(query, payload)
+
+
+def _launch_nn_select(query, payload, geom=None):
+    """K4's launch on checked CUDA inputs (Nq, Nt > 0), at ``geom``
+    (default :func:`k4_geometry`)."""
+    nq = query.shape[0]
+    P, nt = payload.shape
+    dev = query.device
     d2 = torch.empty((nq,), dtype=torch.float32, device=dev)
     sel = torch.empty((P, nq), dtype=torch.float32, device=dev)
-    chunk, chunks = _k4_chunking(nq, nt)
-    part_d = torch.empty((chunks, nq), dtype=torch.float32, device=dev)
-    part_i = torch.empty((chunks, nq), dtype=torch.int32, device=dev)
+    g = geom or k4_geometry(nq, nt)
+    part_d, part_i, _, arrivals = _split_scratch(1, nq, g, dev, False, "nn_select")
     lib = load_library()
     rc = lib.scl_nn_select(
-        query.data_ptr(), payload.data_ptr(), part_d.data_ptr(),
-        part_i.data_ptr(), d2.data_ptr(), sel.data_ptr(), nq, nt, P, chunk,
-        chunks, dev.index or 0, _stream(dev),
+        query.data_ptr(), payload.data_ptr(), *_ptrs((part_d, part_i, arrivals)),
+        d2.data_ptr(), sel.data_ptr(), nq, nt, P, g.threads, g.rq, g.slice_len,
+        g.slices, dev.index or 0, _stream(dev),
     )
     _check_launch(lib, rc, "nn_select")
     LAUNCHES["nn_select"] += 1
@@ -846,16 +961,23 @@ def nearest_neighbors(query: torch.Tensor, target: torch.Tensor):
             torch.full((nq,), float("inf"), dtype=torch.float32, device=dev),
             torch.zeros((nq,), dtype=torch.int32, device=dev),
         )
+    return _launch_nearest_neighbors(query, target)
+
+
+def _launch_nearest_neighbors(query, target, geom=None):
+    """K3's launch on checked CUDA inputs (Nq, Nt > 0), at ``geom``
+    (default :func:`k4_geometry`)."""
+    nq, nt = query.shape[0], target.shape[0]
+    dev = query.device
     d2 = torch.empty((nq,), dtype=torch.float32, device=dev)
     idx = torch.empty((nq,), dtype=torch.int32, device=dev)
-    chunk, chunks = _k4_chunking(nq, nt)
-    part_d = torch.empty((chunks, nq), dtype=torch.float32, device=dev)
-    part_i = torch.empty((chunks, nq), dtype=torch.int32, device=dev)
+    g = geom or k4_geometry(nq, nt)
+    part_d, part_i, _, arrivals = _split_scratch(1, nq, g, dev, False, "nearest_neighbors")
     lib = load_library()
     rc = lib.scl_nearest_neighbors(
-        query.data_ptr(), target.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
-        d2.data_ptr(), idx.data_ptr(), nq, nt, chunk, chunks, dev.index or 0,
-        _stream(dev),
+        query.data_ptr(), target.data_ptr(), *_ptrs((part_d, part_i, arrivals)),
+        d2.data_ptr(), idx.data_ptr(), nq, nt, g.threads, g.rq, g.slice_len,
+        g.slices, dev.index or 0, _stream(dev),
     )
     _check_launch(lib, rc, "nearest_neighbors")
     LAUNCHES["nearest_neighbors"] += 1

@@ -908,7 +908,9 @@ class Mapper:
         (the keyframe gate runs host-side per frame; ``apply_gate=False``
         takes every frame). Returns ``{"accepted": [bool per frame],
         "loops": [dict | None per accepted frame], "keyframes": total}``.
+        Loops served for peers are queued first, as in ``add_frame``.
         """
+        self._drain_server_loops()
         n = len(scans)
         if stamps is None:
             stamps = [0.0] * n

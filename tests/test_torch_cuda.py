@@ -249,18 +249,46 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def tie_heavy(payload, lane):
+    """Make one lane's targets full of ties: every target is one of two
+    points, so each query ties with half the targets, and a query at
+    (4, 8, 13), at unit distance from both, with all of them."""
+    out = payload.copy()
+    out[lane, :3] = np.float32([[4.0], [8.0], [12.0]])
+    out[lane, 2, 1::2] = 14.0
+    out[lane, 3] = 1.0
+    return out
+
+
+# the split kernels' ragged cases: nq off a query tile, nt off a shared
+# memory tile, a single target (csrc/nn_split.cuh)
+K1_SHAPES = ((5, 256, 2048), (5, 1000, 3000), (3, 37, 1000), (4, 5, 1), (32, 1024, 8192))
+
+
 @pytest.mark.cuda
 def test_k1_cuda_kernel_matches_plain(cuda_device):
+    """The tie average: d2 bit-equal, the selection within TIE_ATOL, at the
+    replay path's shapes and ragged ones, with a lane full of ties; then a
+    batch of inactive lanes only (inf, 0)."""
     kernels.reset_launch_counts()
-    for nq, nt in ((256, 2048), (1000, 3000)):
-        q, payload, active = nn_inputs(7, 5, nq, nt)
-        args = [torch.from_numpy(x).to(cuda_device) for x in (q, payload, active)]
+    for B, nq, nt in K1_SHAPES:
+        q, payload, active = nn_inputs(7 + nt, max(B, 3), nq, max(nt, 3))
+        payload = tie_heavy(payload[..., :nt], 0)
+        q[0, :4] = np.float32([4.0, 8.0, 13.0])
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+                for x in (q[:B], payload[:B], active[:B])]
         d, sel = kernels.nn_select_batched(*args)
         d_ref, sel_ref = kernels.nn_select_batched_plain(*args)
         torch.cuda.synchronize()
         assert torch.equal(d, d_ref)
         torch.testing.assert_close(sel, sel_ref, rtol=0, atol=TIE_ATOL)
-    assert kernels.LAUNCHES["nn_select_batched"] == 2
+        assert torch.isinf(d[1]).all() and (sel[1] == 0).all()
+        assert (d[0, :4] == 1.0).all()
+        if nt % 2 == 0:  # as many targets at z = 12 as at z = 14
+            assert (sel[0, 2, :4] == 13.0).all()
+    d, sel = kernels.nn_select_batched(args[0], args[1], torch.zeros_like(args[2]))
+    assert torch.isinf(d).all() and (sel == 0).all()
+    assert kernels.LAUNCHES["nn_select_batched"] == len(K1_SHAPES) + 1
 
 
 @pytest.mark.cuda
@@ -280,7 +308,8 @@ def test_k4_cuda_kernel_matches_plain(cuda_device):
     """d2 bit-equal and the selection equal (lowest index on exact ties) at
     the live path's ICP shapes, at P = 8, and at ragged sizes."""
     kernels.reset_launch_counts()
-    shapes = ((256, 4096, 4), (1024, 16384, 4), (1024, 16384, 8), (1000, 3001, 4), (7, 50, 4))
+    shapes = ((256, 4096, 4), (1024, 16384, 4), (1024, 16384, 8), (1000, 3001, 4), (7, 50, 4),
+              (37, 1, 4), (130, 257, 8))
     for nq, nt, P in shapes:
         q, payload, _ = nn_solo_inputs(nq + P, nq, nt, P)
         args = [torch.from_numpy(x).to(cuda_device) for x in (q, payload)]
@@ -289,7 +318,12 @@ def test_k4_cuda_kernel_matches_plain(cuda_device):
         torch.cuda.synchronize()
         assert torch.equal(d, d_ref)
         assert torch.equal(sel, sel_ref)
-    assert kernels.LAUNCHES["nn_select"] == len(shapes)
+    # every target identical: the lowest index (0) wins every query
+    ties = torch.ones((4, 5000), device=cuda_device)
+    ties[3] = torch.arange(5000, device=cuda_device)
+    d, sel = kernels.nn_select(args[0], ties)
+    assert torch.equal(d, kernels.nn_select_plain(args[0], ties)[0]) and (sel[3] == 0).all()
+    assert kernels.LAUNCHES["nn_select"] == len(shapes) + 1
 
 
 @pytest.mark.cuda
@@ -298,7 +332,7 @@ def test_k3_cuda_kernel_matches_plain(cuda_device):
     targets; no target gives (inf, 0)) at the verification shapes and at
     ragged sizes."""
     kernels.reset_launch_counts()
-    shapes = ((256, 4096), (4096, 8192), (1000, 3001), (7, 50))
+    shapes = ((256, 4096), (4096, 8192), (1000, 3001), (7, 50), (37, 1), (130, 257))
     for nq, nt in shapes:
         q, payload, _ = nn_solo_inputs(nq + 3, nq, nt, 4)
         target = np.ascontiguousarray(payload[:3].T)
@@ -308,7 +342,10 @@ def test_k3_cuda_kernel_matches_plain(cuda_device):
         torch.cuda.synchronize()
         assert torch.equal(d, d_ref)
         assert torch.equal(idx, idx_ref)
-    assert kernels.LAUNCHES["nearest_neighbors"] == len(shapes)
+    ties = torch.ones((5000, 3), device=cuda_device)  # every target identical
+    d, idx = kernels.nearest_neighbors(args[0], ties)
+    assert torch.equal(d, kernels.nearest_neighbors_plain(args[0], ties)[0]) and (idx == 0).all()
+    assert kernels.LAUNCHES["nearest_neighbors"] == len(shapes) + 1
     d, idx = kernels.nearest_neighbors(args[0], args[1][:0])
     assert torch.isinf(d).all() and (idx == 0).all()
 
@@ -348,9 +385,11 @@ def test_k1_argmin_and_k7_cuda_kernels_match_plain(cuda_device):
     ties), the argmin selection equal to the indexed column, at the
     replay path's shapes and at ragged sizes."""
     kernels.reset_launch_counts()
-    shapes = ((32, 1024, 8192), (5, 256, 2048), (5, 1000, 3000))
-    for B, nq, nt in shapes:
-        args = [torch.from_numpy(x).to(cuda_device) for x in nn_inputs(nq + B, B, nq, nt)]
+    for B, nq, nt in K1_SHAPES:
+        q, payload, active = nn_inputs(nq + B, max(B, 3), nq, max(nt, 3))
+        payload = tie_heavy(payload[..., :nt], 0)
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+                for x in (q[:B], payload[:B], active[:B])]
         d, sel = kernels.nn_select_batched(*args, variant="argmin")
         d7, idx = kernels.nn_index_batched(*args)
         d_ref, sel_ref = kernels.nn_select_batched_plain(*args, variant="argmin")
@@ -359,8 +398,11 @@ def test_k1_argmin_and_k7_cuda_kernels_match_plain(cuda_device):
         assert torch.equal(d, d_ref) and torch.equal(sel, sel_ref)
         assert torch.equal(d7, d7_ref) and torch.equal(idx, idx_ref) and torch.equal(d7, d)
         assert torch.isinf(d7[1]).all() and (idx[1] == 0).all() and (sel[1] == 0).all()
-    assert kernels.LAUNCHES["nn_select_batched_argmin"] == len(shapes)
-    assert kernels.LAUNCHES["nn_index_batched"] == len(shapes)
+    off = torch.zeros_like(args[2])
+    d7, idx = kernels.nn_index_batched(args[0], args[1], off)
+    assert torch.isinf(d7).all() and (idx == 0).all()
+    assert kernels.LAUNCHES["nn_select_batched_argmin"] == len(K1_SHAPES)
+    assert kernels.LAUNCHES["nn_index_batched"] == len(K1_SHAPES) + 1
     assert kernels.LAUNCHES["nn_select_batched"] == 0
 
 

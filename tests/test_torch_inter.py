@@ -378,6 +378,34 @@ def test_verify_ransac_and_queue_loop_match_jax(world, own_state):
     assert bool(tst.loop_closed)
 
 
+def test_add_frames_queues_served_loops_first(world, own_state):
+    """A loop served for a peer and still pending is queued before
+    ``add_frames`` ingests its batch, as JAX's ``add_frames`` queues it
+    (``_drain_server_loops`` before the gate): after the batch (two frames
+    inside the exclusion window: no intra loop) the port's queue rows
+    equal JAX's ``_queue_loop`` of that loop."""
+    w, gt = world
+    jcfg, tcfg = _cfg(jconfig), _cfg(tconfig)
+    m = M.Mapper(tcfg, "cpu")
+    m.state = state_from_numpy(state_to_numpy(own_state), "cpu")
+    zT = np.eye(4, dtype=np.float32)
+    zT[:3, 3] = [0.5, -0.25, 0.125]
+    i_enc, j_enc = M.encode_kf(1, 7), M.encode_kf(0, 1)
+    m._pending_server_loops.append((i_enc, j_enc, zT, 0.25))
+    jst = JM._queue_loop(own_state, jnp.array(i_enc), jnp.array(j_enc), _jpose(zT),
+                         jnp.float32(0.25), jcfg)
+    frames = (36, 37)
+    out = m.add_frames([_tpose(gt[k]) for k in frames],
+                       [w.scan_at(gt[k], max_points=4096, seed=k) for k in frames],
+                       stamps=[0.1 * k for k in frames], apply_gate=False)
+    assert out["loops"] == [None, None] and m._pending_server_loops == []
+    t, j = state_to_numpy(m.state), state_to_numpy(jst)
+    for k in t:
+        if "loop_queue" in k or k in ("loop_target", "loop_closed"):
+            np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    assert int(m.state.loop_queue.count) == 1
+
+
 def test_global_map_matches_jax(world, own_state):
     """``voxel_downsample`` and the assembled map against JAX's: the same
     representatives (as sets, to f32 rounding of the transform)."""
