@@ -12,13 +12,15 @@ Phases (any failure raises, and the script exits non-zero):
 2. builds the CUDA kernels from ``scl_slam_tpu_torch/csrc`` with nvcc and
    prints the build seconds (beside those of one nvcc call of the same
    sources and flags) and ptxas' register/shared-memory report (the split
-   kernels of K1, K7, K4 and K3 are the ``nn_split_kernel`` entries);
+   kernels of K1, K7, K8, K4, K3 and K5 are the ``nn_split_kernel``
+   entries);
 3. K1 (batched 1-NN + payload select) against its plain PyTorch version on
    the card at both ICP shapes of the replay path, with inactive lanes and
    planted exact ties: d2 bit-equal, selection equal up to the stated tie
    tolerance; kernel and plain times by CUDA events; the launch geometry
-   (blocks, warps per SM, slices), the time beside PERF.md's PR 5 row, and
-   the share of the bound beside the 50% issue ceiling;
+   (blocks, warps per SM, slices), the time beside PERF.md's row from
+   before the split-target design, and the share of the bound beside the
+   50% issue ceiling;
 4. K2 (max image) against its plain version at 32 x 65,536 points into
    20 x 60 bins: bit-equal; both times;
 5. the replay slice at the bench configuration (bench.py's pipeline
@@ -34,8 +36,8 @@ Phases (any failure raises, and the script exits non-zero):
 7. K4 (solo 1-NN + payload select, lowest index on exact ties) against its
    plain version on the card at both ICP shapes of the live path (256 x
    4,096 and 1,024 x 16,384, P = 4) and at P = 8, with planted exact ties
-   and padded targets: d2 bit-equal, selection equal; the geometry, the PR 5
-   row and the share of the bound as in phase 3;
+   and padded targets: d2 bit-equal, selection equal; the geometry, the
+   earlier row and the share of the bound as in phase 3;
 8. the live demo ``python -m scl_slam_tpu_torch.run --dataset synthetic``
    on the card with its defaults (120 frames): it must close loops and
    end with an ATE below odometry-only; then the same 60-frame run on the
@@ -51,8 +53,8 @@ Phases (any failure raises, and the script exits non-zero):
    its plain version on the card at 256 x 4,096, 4,096 x 8,192 (the
    default configuration's verification) and 4,096 x 16,384 (the
    kitti_velodyne widths), with planted exact ties and padded targets: d2
-   bit-equal, index equal; the geometry, the PR 5 row and the share of the
-   bound as in phase 3;
+   bit-equal, index equal; the geometry, the earlier row and the share of
+   the bound as in phase 3;
 11. the inter-robot path: ``python -m scl_slam_tpu_torch.run_multi --robots
    2`` with its defaults (120 frames, the default ``SlamConfig``) on the
    card, with every inter-robot layer timed alone (a synchronize before
@@ -93,7 +95,10 @@ Phases (any failure raises, and the script exits non-zero):
    against its plain version at the bench's two ICP stage shapes (32 x
    1,024 x 8,192 and 32 x 256 x 2,048, 24 of 32 lanes active): the counts
    equal, every sum within 2e-6 of its terms' absolute mass of their exact
-   sum, inactive lanes zero, mineq == argmin on tie-free inputs; times;
+   sum, inactive lanes zero, mineq == argmin on tie-free inputs; then the
+   mineq body on planted exact ties (identical and equidistant distinct
+   targets), held the same way; times, the launch geometry, the earlier
+   row and the share of the bound as in phase 3;
 19. K7 (batched 1-NN index) and K1's argmin body against their plain
    versions at 32 x 1,024 x 8,192 and the fleet RANSAC's 16 x 1,024 x
    8,192, with planted exact ties: d2, index and selection bit-equal, K7 +
@@ -101,7 +106,8 @@ Phases (any failure raises, and the script exits non-zero):
 20. K8 (K1's argmin contract by the expanded form) at 32 x 1,024 x 8,192 on
    recentred coordinates: bit-equal to its plain version; against K1 at
    least 99% identical winners, each winner's exact d2 within 5e-3 of
-   K1's; times;
+   K1's; times, the launch geometry, the earlier row and the share of the
+   bound as in phase 3;
 21. phase 5's replay under each batched-ICP switch (default, ``FUSED_ICP``,
    ``NN_INDEX``, ``MXU_NN``, ``SELECT_VARIANT="argmin"``): a warm-up, an
    untimed counting run, 5 timed runs (median frames/s and every run);
@@ -204,14 +210,17 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# PERF.md's rows of PR 5 (NVIDIA H100 80GB HBM3, 700.00 W; CUDA-graph
-# replays): the times of K1, K7, K4 and K3 before the split-target design
-PR5_MS = {
+# PERF.md's rows (NVIDIA H100 80GB HBM3, 700.00 W; CUDA-graph replays):
+# each kernel's time before it moved onto the split-target design
+ROW_MS = {
     "K1-mineq full": 0.4269, "K1-mineq coarse": 0.1060,
     "K1-argmin replay": 0.1847, "K1-argmin fleet_ransac": 0.1369,
     "K7 replay": 0.1421, "K7 fleet_ransac": 0.0993,
     "K4 full": 0.0188, "K4 coarse": 0.0119, "K4 full_p8": 0.0190,
     "K3 full": 0.0273, "K3 small": 0.0123, "K3 kitti": 0.0477,
+    "K5-mineq full": 0.4334, "K5-mineq coarse": 0.1101,
+    "K5-argmin full": 0.1830, "K5-argmin coarse": 0.0401,
+    "K8 replay": 0.1784,
 }
 
 
@@ -227,12 +236,13 @@ def split_geometry(torch, g, lanes: int, active_lanes: int) -> str:
             f"{g.slice_len} targets, {-(-g.slice_len // (g.threads // 32))} a warp")
 
 
-def versus_pr5(key: str, ms: float, bound_ms: float) -> str:
-    """The time beside PERF.md's PR 5 row and the share of the bound. The
-    build's -fmad=false makes each of the 9 operations of a pair its own
-    instruction, so 50% of the stated FP32 bound is the issue ceiling."""
-    old = PR5_MS[key]
-    return (f"PR 5 row {old:.4f} ms, now {old / ms:.2f}x as fast; "
+def versus_row(key: str, ms: float, bound_ms: float) -> str:
+    """The time beside PERF.md's row from before the split-target design
+    and the share of the bound. The build's -fmad=false makes each of the
+    9 operations of a pair its own instruction, so 50% of the stated FP32
+    bound is the issue ceiling."""
+    old = ROW_MS[key]
+    return (f"row before the split design {old:.4f} ms, now {old / ms:.2f}x as fast; "
             f"{100 * bound_ms / ms:.1f}% of the bound (issue ceiling 50%)")
 
 
@@ -411,7 +421,7 @@ def phase_k1(torch, kernels) -> dict:
             f"bound {bound_ms:.4f} ms ({bound_by})")
         log(f"[3]   K1 {label} geometry: "
             f"{split_geometry(torch, kernels.k1_geometry(B, nq, nt), B, n_active)}; "
-            f"{versus_pr5('K1-mineq ' + label, ms, bound_ms)}")
+            f"{versus_row('K1-mineq ' + label, ms, bound_ms)}")
         res[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by}
     return res
@@ -772,7 +782,7 @@ def phase_k4(torch, kernels) -> dict:
             f"bound {bound_ms:.4f} ms ({bound_by})")
         log(f"[7]   K4 {label} geometry: "
             f"{split_geometry(torch, kernels.k4_geometry(nq, nt), 1, 1)}; "
-            f"{versus_pr5('K4 ' + label, ms, bound_ms)}")
+            f"{versus_row('K4 ' + label, ms, bound_ms)}")
         res[label] = {"max_abs_err": float((sel - sel_p).abs().max().item()), "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     return res
@@ -1003,7 +1013,7 @@ def phase_k3(torch, kernels) -> dict:
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         log(f"[10]   K3 {label} geometry: "
             f"{split_geometry(torch, kernels.k4_geometry(nq, nt), 1, 1)}; "
-            f"{versus_pr5('K3 ' + label, ms, bound_ms)}")
+            f"{versus_row('K3 ' + label, ms, bound_ms)}")
         res[label] = {"max_abs_err": float((d - d_p).abs().max().item()), "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     return res
@@ -1710,10 +1720,13 @@ def kernel_times(torch, call, plain, graph_reps=20, plain_reps=5):
 # K5 against its plain version: the counts exactly; every sum within 2e-6
 # of its terms' absolute mass (sum of |term|) of their exact (float64) sum.
 # A float32 sum whose every term passes through at most d roundings is
-# within d * 2**-24 of that mass: the kernel's order (a 32-lane shuffle
-# tree, 2 warps, then up to 16 blocks in sequence at Nq = 1,024) has d <=
-# 22, 1.3e-6. The moment sums cancel (signed coordinates), so a bound
-# relative to the sum itself would not hold.
+# within d * 2**-24 of that mass. The kernel's order
+# (kernels.k5_sum_roundings) at 32 x 1,024 x 8,192 has d <= 24, 1.4e-6:
+# the term's product 1, the 2 queries of a lane 1, the 32-lane shuffle
+# tree 5, the warps 0 (they merge nearest neighbours, not sums), the
+# mineq tie sums across ranges 2, then the 16 query groups in sequence 15.
+# The moment sums cancel (signed coordinates), so a bound relative to the
+# sum itself would not hold.
 K5_MASS_TOL = 2e-6
 
 
@@ -1728,6 +1741,46 @@ def k5_error(kernels, m, args, variant) -> float:
     return float((err / mass.clamp(min=1e-300)).max().item())
 
 
+def k5_tie_inputs(torch, B, nq, nt, seed):
+    """K5 inputs with planted exact ties: k1_inputs' lanes (lane 1's
+    targets in triplicate, lane 2's integer queries at unit distance from
+    three distinct targets, every 4th lane inactive), the source in a
+    random local frame per lane as k5_inputs, but lane 2 at the identity
+    pose, which moves its grid points exactly onto themselves."""
+    q, payload, active = k1_inputs(torch, B, nq, nt, seed)
+    rng = np.random.RandomState(seed + 1)
+    dev = q.device
+    R = torch.tensor(np.stack([rot(rng.normal(0, 0.15, 3)) for _ in range(B)]),
+                     dtype=torch.float32, device=dev)
+    t = torch.tensor(rng.uniform(-5, 5, (B, 3)), dtype=torch.float32, device=dev)
+    R[2], t[2] = torch.eye(3, device=dev), 0.0
+    local = torch.einsum("bji,bnj->bni", R, q - t[:, None])          # R^T (q - t)
+    local[2] = q[2]
+    valid = torch.from_numpy(rng.rand(B, nq) > 0.1).to(dev)
+    src4 = torch.cat([local.transpose(1, 2), valid[:, None].float()], 1).contiguous()
+    return src4, payload, R.contiguous(), t.contiguous(), active
+
+
+def k5_check(torch, kernels, args, variant, what) -> tuple:
+    """(kernel sums, plain sums, error of the terms' mass); raises unless
+    the counts are equal, the error is within K5_MASS_TOL and inactive
+    lanes are zero."""
+    m = kernels.icp_moments_batched(*args, 3.0, variant=variant)
+    ref = kernels.icp_moments_batched_plain(*args, 3.0, variant=variant)
+    torch.cuda.synchronize()
+    for k in (kernels.M_W, kernels.M_NSRC):
+        if not torch.equal(m[:, k], ref[:, k]):
+            raise AssertionError(f"K5 {what} {variant}: slot {k} differs: "
+                                 f"{m[:, k].tolist()} vs {ref[:, k].tolist()}")
+    rel, rel_p = k5_error(kernels, m, args, variant), k5_error(kernels, ref, args, variant)
+    if max(rel, rel_p) > K5_MASS_TOL:
+        raise AssertionError(f"K5 {what} {variant}: error {rel} (plain {rel_p}) of the "
+                             f"terms' mass > {K5_MASS_TOL}")
+    if not (m[~args[4].bool()] == 0).all():
+        raise AssertionError(f"K5 {what} {variant}: an inactive lane is not zero")
+    return m, ref, rel
+
+
 def phase_k5(torch, kernels) -> dict:
     res = {}
     for B, nq, nt, label in ((32, 1024, 8192, "full"), (32, 256, 2048, "coarse")):
@@ -1735,19 +1788,7 @@ def phase_k5(torch, kernels) -> dict:
         src4, payload, R, t, active = args
         out = {}
         for variant in ("mineq", "argmin"):
-            m = kernels.icp_moments_batched(*args, 3.0, variant=variant)
-            ref = kernels.icp_moments_batched_plain(*args, 3.0, variant=variant)
-            torch.cuda.synchronize()
-            for k in (kernels.M_W, kernels.M_NSRC):
-                if not torch.equal(m[:, k], ref[:, k]):
-                    raise AssertionError(f"K5 {label} {variant}: slot {k} differs: "
-                                         f"{m[:, k].tolist()} vs {ref[:, k].tolist()}")
-            rel, rel_p = k5_error(kernels, m, args, variant), k5_error(kernels, ref, args, variant)
-            if max(rel, rel_p) > K5_MASS_TOL:
-                raise AssertionError(f"K5 {label} {variant}: error {rel} (plain {rel_p}) of the "
-                                     f"terms' mass > {K5_MASS_TOL}")
-            if not (m[3::4] == 0).all():
-                raise AssertionError(f"K5 {label} {variant}: an inactive lane is not zero")
+            m, ref, rel = k5_check(torch, kernels, args, variant, label)
             if int(m[0, kernels.M_W]) < nq // 2:
                 raise AssertionError(f"K5 {label}: too few correspondences {m[0, kernels.M_W]}")
             ms, eager, plain_ms = kernel_times(
@@ -1757,16 +1798,27 @@ def phase_k5(torch, kernels) -> dict:
             out[variant] = (m, ref, rel, ms, eager, plain_ms)
         if not torch.equal(out["mineq"][0], out["argmin"][0]):
             raise AssertionError(f"K5 {label}: mineq and argmin differ on tie-free inputs")
+        ties = k5_tie_inputs(torch, B, nq, nt, seed=nq + 6)
+        _, _, rel_tie = k5_check(torch, kernels, ties, "mineq", f"{label} planted ties")
         n_active = int(active.sum().item())
         bound_ms, bound_by = nn_bound(
             n_active, nq, nt, 4 * (B * 4 * nq + B * 4 * nt + B * 12 + B + B * 18)
         )
         m, ref, rel, ms, eager, plain_ms = out["mineq"]
+        a_ms = out["argmin"][3]
+        g, g_a = (kernels.k5_geometry(B, nq, nt, v) for v in ("mineq", "argmin"))
         log(f"[18] K5 {label} {B}x{nq}x{nt} ({n_active} lanes active): counts equal, error of "
-            f"the terms' mass {rel:.3g} (mineq), {out['argmin'][2]:.3g} (argmin), mineq == argmin; "
+            f"the terms' mass {rel:.3g} (mineq), {out['argmin'][2]:.3g} (argmin), "
+            f"{rel_tie:.3g} (mineq, planted ties), mineq == argmin; "
             f"mineq kernel {ms:.4f} ms (eager call {eager:.4f} ms), plain {plain_ms:.4f} ms; "
-            f"argmin kernel {out['argmin'][3]:.4f} ms (eager {out['argmin'][4]:.4f} ms), "
+            f"argmin kernel {a_ms:.4f} ms (eager {out['argmin'][4]:.4f} ms), "
             f"plain {out['argmin'][5]:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"[18]   K5-mineq {label} geometry: {split_geometry(torch, g, B, n_active)}; at most "
+            f"{kernels.k5_sum_roundings(g)} roundings a term; "
+            f"{versus_row('K5-mineq ' + label, ms, bound_ms)}")
+        log(f"[18]   K5-argmin {label} geometry: {split_geometry(torch, g_a, B, n_active)}; at "
+            f"most {kernels.k5_sum_roundings(g_a, 'argmin')} roundings a term; "
+            f"{versus_row('K5-argmin ' + label, a_ms, bound_ms)}")
         res[label] = {"max_abs_err": float((m - ref).abs().max().item()), "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     return res
@@ -1814,8 +1866,8 @@ def phase_k7(torch, kernels) -> dict:
             f"{b7[0]:.4f} ms ({b7[1]}); K1-argmin kernel {k1a[0]:.4f} ms (eager {k1a[1]:.4f} "
             f"ms), plain {k1a[2]:.4f} ms, bound {b1[0]:.4f} ms ({b1[1]})")
         log(f"[19]   geometry: {split_geometry(torch, kernels.k1_geometry(B, nq, nt), B, n_active)}; "
-            f"K7 {versus_pr5('K7 ' + label, k7[0], b7[0])}; "
-            f"K1-argmin {versus_pr5('K1-argmin ' + label, k1a[0], b1[0])}")
+            f"K7 {versus_row('K7 ' + label, k7[0], b7[0])}; "
+            f"K1-argmin {versus_row('K1-argmin ' + label, k1a[0], b1[0])}")
         res[label] = {
             "k7": {"max_abs_err": float((idx - idx_p).abs().max().item()), "ms": k7[0],
                    "plain_ms": k7[2], "bound_ms": b7[0], "bound_by": b7[1]},
@@ -1852,6 +1904,8 @@ def phase_k8(torch, kernels) -> dict:
     log(f"[20] K8 {B}x{nq}x{nt} (recentred): bit-equal to the plain version; against K1: "
         f"{100 * same:.3f}% identical winners, exact d2 at most {dd:.3g} above; kernel {ms:.4f} "
         f"ms (eager {eager:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"[20]   K8 geometry: {split_geometry(torch, kernels.k1_geometry(B, nq, nt), B, n_active)}; "
+        f"{versus_row('K8 replay', ms, bound_ms)}")
     return {"max_abs_err": float((sel8 - sel8_p).abs().max().item()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 

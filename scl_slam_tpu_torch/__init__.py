@@ -17,8 +17,9 @@ batched RANSAC; ``run_multi --fleet``) with keyframe eviction
 (``runtime/eviction.py``), and the JAX package's batched-ICP switches
 (``FUSED_ICP``, ``NN_INDEX``, ``MXU_NN``, ``SELECT_VARIANT`` in
 ``ops/registration.py``). Every TPU kernel has its CUDA counterpart; the
-batched 1-NN (K1, K7) and the solo 1-NN (K4, K3) split the target axis
-across the card (``csrc/nn_split.cuh``). ``Mapper`` runs on the GPU unless
+batched 1-NN (K1, K7, K8), the solo 1-NN (K4, K3) and the fused ICP
+moments (K5) run one kernel that splits the target axis across the card
+(``csrc/nn_split.cuh``). ``Mapper`` runs on the GPU unless
 it is given ``device="cpu"``. What is still to come is listed in
 ``ROADMAP.md``.
 """

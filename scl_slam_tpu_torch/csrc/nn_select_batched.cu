@@ -50,104 +50,27 @@
 // card. The replay path's full-resolution pass is 32 x 1024 x 8192 = 0.27 G
 // pairs.
 //
-// Design: K1 (both bodies) and K7 run the split-target 1-NN of
-// csrc/nn_split.cuh: a grid of (query groups, target slices, lanes), each
-// warp walking a contiguous part of its slice for 64 queries held two to a
-// lane, the min of each group of 8 targets taken by fminf before one
-// compare, double-buffered tiles staged by cp.async, the parts merged in
-// shared memory and the slices by the last block to arrive, all in
-// ascending order. The scratch (partials, arrival counters) may be null
-// with one slice. K8 runs one thread per query on a grid of (query blocks,
-// lanes), the lane's target streaming through shared memory with each
-// target's tt added to its tile as a fifth row, computed once where the
-// tile is loaded. Inactive lanes return before touching the target.
+// Design: all three run the split-target 1-NN of csrc/nn_split.cuh: a
+// grid of (query groups, target slices, lanes), each warp walking a
+// contiguous part of its slice for 64 queries held two to a lane, the min
+// of each group of 8 targets taken by fminf before one compare,
+// double-buffered tiles staged by cp.async, the parts merged in shared
+// memory and the slices by the last block to arrive, all in ascending
+// order. K8 takes the walk's expanded-form distance policy (ExpandedOp):
+// each query's qq in a register, each target's tt computed once where its
+// warp tile lands, into the tile slot's fourth float, and padded slots at
+// the origin with tt = inf; its read-back recomputes tt from the target's
+// coordinates in the same order. The scratch (partials, arrival counters)
+// may be null with one slice. Inactive lanes return before touching the
+// target.
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
-#include "batched_nn.cuh"
 #include "nn_split.cuh"
 
 namespace {
 
-using scl::kNnRows;
-using scl::kNnThreads;
-using scl::kNnTile;
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
-                   __fmul_rn(az, bz));
-}
-
-__global__ void __launch_bounds__(kNnThreads)
-nn_select_batched_mxu_kernel(const float* __restrict__ query,
-                             const float* __restrict__ payload,
-                             const int32_t* __restrict__ active,
-                             float* __restrict__ d_out,
-                             float* __restrict__ sel_out, int nq, int nt) {
-  __shared__ float tile[kNnRows + 1][kNnTile];  // xyz, validity, tt
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * kNnThreads + threadIdx.x;
-  const bool in_range = i < nq;
-  float* d_lane = d_out + static_cast<size_t>(b) * nq;
-  float* sel_lane = sel_out + static_cast<size_t>(b) * kNnRows * nq;
-
-  if (active[b] == 0) {  // uniform across the block
-    if (in_range) {
-      d_lane[i] = CUDART_INF_F;
-      for (int p = 0; p < kNnRows; ++p) sel_lane[p * nq + i] = 0.0f;
-    }
-    return;
-  }
-
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  if (in_range) {
-    const float* q = query + (static_cast<size_t>(b) * nq + i) * 3;
-    qx = q[0];
-    qy = q[1];
-    qz = q[2];
-  }
-  const float qq = dot3(qx, qy, qz, qx, qy, qz);
-  const float* pl = payload + static_cast<size_t>(b) * kNnRows * nt;
-
-  float best = CUDART_INF_F;
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-  for (int t0 = 0; t0 < nt; t0 += kNnTile) {
-    const int n = min(kNnTile, nt - t0);
-    __syncthreads();  // previous tile fully consumed
-    for (int k = threadIdx.x; k < n; k += kNnThreads) {
-      float v[kNnRows];
-#pragma unroll
-      for (int p = 0; p < kNnRows; ++p) {
-        v[p] = pl[static_cast<size_t>(p) * nt + t0 + k];
-        tile[p][k] = v[p];
-      }
-      tile[kNnRows][k] = dot3(v[0], v[1], v[2], v[0], v[1], v[2]);
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float tx = tile[0][j];
-      const float ty = tile[1][j];
-      const float tz = tile[2][j];
-      const float c = dot3(qx, qy, qz, tx, ty, tz);
-      const float d = __fadd_rn(__fsub_rn(qq, __fmul_rn(2.0f, c)), tile[kNnRows][j]);
-      if (d < best) {  // strict: the lowest index keeps a tie
-        best = d;
-        s0 = tx;
-        s1 = ty;
-        s2 = tz;
-        s3 = tile[3][j];
-      }
-    }
-  }
-  if (!in_range) return;
-  d_lane[i] = fmaxf(best, 0.0f);  // inf stays inf
-  sel_lane[0 * nq + i] = s0;
-  sel_lane[1 * nq + i] = s1;
-  sel_lane[2 * nq + i] = s2;
-  sel_lane[3 * nq + i] = s3;
-}
+constexpr int kNnRows = 4;  // payload rows: target xyz + validity
 
 }  // namespace
 
@@ -224,18 +147,39 @@ extern "C" int scl_nn_index_batched(const float* query, const float* payload,
       a, batch, threads, rq, static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int scl_nn_select_batched_mxu(const float* query,
-                                         const float* payload,
+// K8: K1-argmin's outputs with d2 by the expanded form, clamped at 0 where
+// a target was found. Scratch as K1's argmin body.
+extern "C" int scl_nn_select_batched_mxu(const float* query, const float* payload,
                                          const int32_t* active, float* d_out,
-                                         float* sel_out, int batch, int nq,
-                                         int nt, int device, void* stream) {
+                                         float* sel_out, float* part_d,
+                                         int32_t* part_i, uint32_t* arrivals,
+                                         int batch, int nq, int nt, int threads,
+                                         int rq, int slice_len, int slices,
+                                         int device, void* stream) {
+  if (!scl::split_geometry_ok(nt, threads, slice_len, slices)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nq + kNnThreads - 1) / kNnThreads, batch);
-  nn_select_batched_mxu_kernel<<<grid, kNnThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      query, payload, active, d_out, sel_out, nq, nt);
-  return static_cast<int>(cudaGetLastError());
+  scl::SplitArgs a{};
+  a.query = query;
+  a.target = {payload, static_cast<size_t>(kNnRows) * nt, static_cast<size_t>(nt), 1};
+  a.active = active;
+  a.nq = nq;
+  a.nt = nt;
+  a.slice_len = slice_len;
+  a.slices = slices;
+  a.part_d = part_d;
+  a.part_i = part_i;
+  a.part_s = nullptr;
+  a.arrivals = arrivals;
+  a.d_out = d_out;
+  a.sel_out = sel_out;
+  a.sel_rows = kNnRows;
+  a.idx_out = nullptr;
+  a.clamp = true;
+  return static_cast<int>(scl::launch_split<scl::Pick::kLowest, scl::ExpandedOp>(
+      a, batch, threads, rq, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* scl_cuda_error_string(int code) {

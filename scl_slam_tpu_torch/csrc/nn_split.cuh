@@ -1,5 +1,6 @@
-// The split-target 1-NN shared by K1 (both bodies) and K7
-// (csrc/nn_select_batched.cu), and by K4 and K3 (csrc/nn_select.cu).
+// The split-target 1-NN shared by K1 (both bodies), K7 and K8
+// (csrc/nn_select_batched.cu), by K4 and K3 (csrc/nn_select.cu) and by K5
+// (both bodies, csrc/icp_moments.cu).
 //
 // What bounds these kernels on the H100 is instruction issue: each
 // (query, target) pair costs ((dx*dx) + (dy*dy)) + (dz*dz) and a compare,
@@ -58,6 +59,15 @@
 //   > 0 (a range with no finite target never "ties" at inf). Ties of three
 //   or more that span ranges are summed range by range: the order differs
 //   from the plain version's by at most 2 ulp of the payload magnitude.
+// - What differs between the kernels is three compile-time policies of one
+//   walk (the kernel's `Op`): where a query comes from (NnOp: [lanes, nq,
+//   3] rows; K5's MomentsOp moves a point of src4 by its lane's pose), the
+//   distance (NnOp: per coordinate; K8's ExpandedOp: (qq - 2 c) + tt, with
+//   tt staged in each tile target's .w), and the finish (NnOp: d and the
+//   selection or index per query; MomentsOp: the 18 gated moment terms of
+//   the block's queries, reduced to one row per query group, and zero
+//   terms for an inactive lane). NnOp's functions are the code the kernel
+//   had before the policies existed.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -91,7 +101,7 @@ struct TargetView {
 };
 
 struct SplitArgs {
-  const float* query;       // [lanes, nq, 3]
+  const float* query;       // [lanes, nq, 3] (K5: src4 [lanes, 4, nq])
   TargetView target;
   const int32_t* active;    // [lanes], or null (every lane active)
   int nq, nt, slice_len, slices;
@@ -187,9 +197,100 @@ __device__ __forceinline__ void finish(const SplitArgs& a, int b, int i,
   }
 }
 
-template <Pick kPick, int kRq, bool kGrouped>
+// One query of the walk: its coordinates and a value of the policy's own
+// (ExpandedOp: qq; MomentsOp: the source point's validity).
+struct Query {
+  float x, y, z, aux;
+};
+
+// The policy of K1, K7, K4 and K3: queries [lanes, nq, 3], the exact
+// per-coordinate d2, targets past a range at infinity, and per query its
+// d with the selection or the index (finish).
+struct NnOp {
+  using Args = SplitArgs;
+
+  static __device__ __forceinline__ Query load_query(const SplitArgs& a, int b, int i) {
+    const float* q = a.query + (static_cast<size_t>(b) * a.nq + i) * 3;
+    return {q[0], q[1], q[2], 0.0f};
+  }
+  // a tile slot past the range's end: never nearest
+  static __device__ __forceinline__ float4 pad() {
+    return make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, 0.0f);
+  }
+  // runs on the n staged targets of a warp's tile once they have landed
+  static __device__ __forceinline__ void on_tile(float4*, int, int) {}
+  static __device__ __forceinline__ float tile_d2(const Query& q, const float4& t) {
+    return split_d2(q.x, q.y, q.z, t.x, t.y, t.z);
+  }
+  // the same d2 from a target's coordinates (the read-back)
+  static __device__ __forceinline__ float point_d2(const Query& q, float tx, float ty,
+                                                   float tz) {
+    return split_d2(q.x, q.y, q.z, tx, ty, tz);
+  }
+  // The outputs of the block's group of queries (q0 + 32 r of lane b) from
+  // their merged results, in warp 0.
+  template <Pick kPick, int kRq>
+  static __device__ __forceinline__ void finish_group(const SplitArgs& a, int b, int q0,
+                                                      const Query*, const Best* m) {
+#pragma unroll
+    for (int r = 0; r < kRq; ++r) {
+      if (q0 + 32 * r < a.nq) finish<kPick>(a, b, q0 + 32 * r, m[r]);
+    }
+  }
+  // The same for a lane that is not active: no target, (inf, 0).
+  template <Pick kPick, int kRq>
+  static __device__ __forceinline__ void finish_inactive(const SplitArgs& a, int b, int q0) {
+    Best none;
+    none.d = CUDART_INF_F;
+    none.i = 0;
+    none.s0 = none.s1 = none.s2 = none.s3 = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kRq; ++r) {
+      if (q0 + 32 * r < a.nq) finish<kPick>(a, b, q0 + 32 * r, none);
+    }
+  }
+};
+
+// K8's policy: d2 by the expanded form, (qq - 2 c) + tt with qq = (qx qx +
+// qy qy) + qz qz, c = (qx tx + qy ty) + qz tz and tt as qq, every step
+// rounded to f32 in that order (the plain version's). tt is computed once a
+// target, where its warp tile lands, into the slot's .w; a padded slot is
+// at the origin with tt = inf (infinite coordinates would give inf - inf).
+struct ExpandedOp : NnOp {
+  static __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                               float by, float bz) {
+    return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
+  }
+  static __device__ __forceinline__ float expanded(const Query& q, float tx, float ty,
+                                                   float tz, float tt) {
+    return __fadd_rn(__fsub_rn(q.aux, __fmul_rn(2.0f, dot3(q.x, q.y, q.z, tx, ty, tz))), tt);
+  }
+  static __device__ __forceinline__ Query load_query(const SplitArgs& a, int b, int i) {
+    Query q = NnOp::load_query(a, b, i);
+    q.aux = dot3(q.x, q.y, q.z, q.x, q.y, q.z);
+    return q;
+  }
+  static __device__ __forceinline__ float4 pad() {
+    return make_float4(0.0f, 0.0f, 0.0f, CUDART_INF_F);
+  }
+  static __device__ __forceinline__ void on_tile(float4* tile, int n, int lane) {
+    for (int k = lane; k < n; k += 32) {  // the slots this lane's copies filled
+      float4& t = tile[k];
+      t.w = dot3(t.x, t.y, t.z, t.x, t.y, t.z);
+    }
+  }
+  static __device__ __forceinline__ float tile_d2(const Query& q, const float4& t) {
+    return expanded(q, t.x, t.y, t.z, t.w);
+  }
+  static __device__ __forceinline__ float point_d2(const Query& q, float tx, float ty,
+                                                   float tz) {
+    return expanded(q, tx, ty, tz, dot3(tx, ty, tz, tx, ty, tz));
+  }
+};
+
+template <class Op, Pick kPick, int kRq, bool kGrouped>
 __global__ void __launch_bounds__(kSplitMaxWarps * 32)
-nn_split_kernel(const SplitArgs a) {
+nn_split_kernel(const typename Op::Args a) {
   static_assert(kGrouped || kPick == Pick::kLowest, "the tie average walks in groups");
   constexpr int kRows = 3;          // staged rows: target xyz
   constexpr int kGroup = 32 * kRq;  // queries a block
@@ -204,31 +305,19 @@ nn_split_kernel(const SplitArgs a) {
   const int q0 = blockIdx.x * kGroup + lane;  // query r: q0 + 32 r
 
   if (a.active != nullptr && a.active[b] == 0) {  // uniform across the grid row
-    if (slice == 0 && w == 0) {
-      Best none;
-      none.d = CUDART_INF_F;
-      none.i = 0;
-      none.s0 = none.s1 = none.s2 = none.s3 = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kRq; ++r) {
-        if (q0 + 32 * r < a.nq) finish<kPick>(a, b, q0 + 32 * r, none);
-      }
-    }
+    if (slice == 0 && w == 0) Op::template finish_inactive<kPick, kRq>(a, b, q0);
     return;
   }
 
-  float qx[kRq], qy[kRq], qz[kRq], best[kRq];
+  Query q[kRq];
+  float best[kRq];
   // kGrouped: the first group of kGroupLen targets whose min is `best`, and
   // (kTieMean) the last group whose min was <= `best` when it was walked;
   // otherwise the first index at `best`
   int first[kRq], last[kRq];
 #pragma unroll
   for (int r = 0; r < kRq; ++r) {
-    const int i = min(q0 + 32 * r, a.nq - 1);  // a spare lane repeats a query
-    const float* q = a.query + (static_cast<size_t>(b) * a.nq + i) * 3;
-    qx[r] = q[0];
-    qy[r] = q[1];
-    qz[r] = q[2];
+    q[r] = Op::load_query(a, b, min(q0 + 32 * r, a.nq - 1));  // a spare lane repeats a query
     best[r] = CUDART_INF_F;
     first[r] = last[r] = 0;
   }
@@ -248,10 +337,8 @@ nn_split_kernel(const SplitArgs a) {
         cp_async4(reinterpret_cast<float*>(&tl[buf][k]) + p, a.target.at(b, p, t0 + k));
       }
     }
-    // a tile past the range's end: targets at infinity, never nearest
-    for (int k = n + lane; k < kWarpTile; k += 32) {
-      tl[buf][k] = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, 0.0f);
-    }
+    // a tile past the range's end: targets never nearest
+    for (int k = n + lane; k < kWarpTile; k += 32) tl[buf][k] = Op::pad();
     cp_async_commit();
   };
 
@@ -264,6 +351,7 @@ nn_split_kernel(const SplitArgs a) {
     } else {
       cp_async_wait<0>();
     }
+    Op::on_tile(tl[buf], min(kWarpTile, w1 - t0), lane);
     __syncwarp();
     const float4* tb = tl[buf];
     if constexpr (kGrouped) {
@@ -277,7 +365,7 @@ nn_split_kernel(const SplitArgs a) {
           const float4 t = tb[g + u];
 #pragma unroll
           for (int r = 0; r < kRq; ++r) {
-            const float d = split_d2(qx[r], qy[r], qz[r], t.x, t.y, t.z);
+            const float d = Op::tile_d2(q[r], t);
             gm[r] = u == 0 ? d : fminf(gm[r], d);
           }
         }
@@ -295,7 +383,7 @@ nn_split_kernel(const SplitArgs a) {
         const float4 t = tb[j];
 #pragma unroll
         for (int r = 0; r < kRq; ++r) {
-          const float d = split_d2(qx[r], qy[r], qz[r], t.x, t.y, t.z);
+          const float d = Op::tile_d2(q[r], t);
           const bool lt = d < best[r];  // strict: the lowest index keeps a tie
           best[r] = lt ? d : best[r];
           first[r] = lt ? t0 + j : first[r];
@@ -330,7 +418,7 @@ nn_split_kernel(const SplitArgs a) {
       m.i = -1;
 #pragma unroll
       for (int u = kGroupLen - 1; u >= 0; --u) {  // the lowest match wins
-        if (split_d2(qx[r], qy[r], qz[r], tx[u], ty[u], tz[u]) == best[r] &&
+        if (Op::point_d2(q[r], tx[u], ty[u], tz[u]) == best[r] &&
             first[r] + u < w1) {
           m.i = first[r] + u;
         }
@@ -349,7 +437,7 @@ nn_split_kernel(const SplitArgs a) {
 #pragma unroll
         for (int u = 0; u < kGroupLen; ++u) {  // ascending: the sum's order
           if (g + u >= w1 ||
-              split_d2(qx[r], qy[r], qz[r], tx[u], ty[u], tz[u]) != best[r]) {
+              Op::point_d2(q[r], tx[u], ty[u], tz[u]) != best[r]) {
             continue;
           }
           if (m.i++ == 0) {
@@ -380,10 +468,7 @@ nn_split_kernel(const SplitArgs a) {
     for (int v = 1; v < W; ++v) merge_into<kPick>(m[r], red[v * kGroup + lane + 32 * r]);
   }
   if (a.slices == 1) {
-#pragma unroll
-    for (int r = 0; r < kRq; ++r) {
-      if (q0 + 32 * r < a.nq) finish<kPick>(a, b, q0 + 32 * r, m[r]);
-    }
+    Op::template finish_group<kPick, kRq>(a, b, q0, q, m);
     return;
   }
 
@@ -455,10 +540,7 @@ nn_split_kernel(const SplitArgs a) {
       }
     }
   }
-#pragma unroll
-  for (int r = 0; r < kRq; ++r) {
-    if (q0 + 32 * r < a.nq) finish<kPick>(a, b, q0 + 32 * r, m[r]);
-  }
+  Op::template finish_group<kPick, kRq>(a, b, q0, q, m);
 }
 
 // A split geometry the kernel can run: 1-16 whole warps, and slices that
@@ -485,27 +567,28 @@ static_assert(kSplitMaxWarps * 32 * 4 * sizeof(Best) <= 48 * 1024 &&
 
 constexpr int kGroupedFrom = 256;  // a warp's targets from which groups pay
 
-template <Pick kPick, int kRq>
-inline cudaError_t launch_rq(const SplitArgs& a, dim3 grid, int threads,
+template <Pick kPick, int kRq, class Op>
+inline cudaError_t launch_rq(const typename Op::Args& a, dim3 grid, int threads,
                              size_t smem, cudaStream_t stream) {
   const int per_warp = (a.slice_len + threads / 32 - 1) / (threads / 32);
   if (kPick == Pick::kLowest && per_warp < kGroupedFrom) {  // the exact index
-    nn_split_kernel<Pick::kLowest, kRq, false><<<grid, threads, smem, stream>>>(a);
+    nn_split_kernel<Op, Pick::kLowest, kRq, false><<<grid, threads, smem, stream>>>(a);
   } else {
-    nn_split_kernel<kPick, kRq, true><<<grid, threads, smem, stream>>>(a);
+    nn_split_kernel<Op, kPick, kRq, true><<<grid, threads, smem, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
-// Launches the kernel for kRq in {2, 4} on grid (query groups, slices,
-// lanes); returns the launch error. The caller checks the geometry.
-template <Pick kPick>
-inline cudaError_t launch_split(const SplitArgs& a, int lanes, int threads,
+// Launches the kernel of policy Op for kRq in {2, 4} on grid (query
+// groups, slices, lanes); returns the launch error. The caller checks the
+// geometry.
+template <Pick kPick, class Op = NnOp>
+inline cudaError_t launch_split(const typename Op::Args& a, int lanes, int threads,
                                 int rq, cudaStream_t stream) {
   const dim3 grid((a.nq + 32 * rq - 1) / (32 * rq), a.slices, lanes);
   const size_t smem = split_smem_bytes(threads, rq);
-  if (rq == 2) return launch_rq<kPick, 2>(a, grid, threads, smem, stream);
-  if (rq == 4) return launch_rq<kPick, 4>(a, grid, threads, smem, stream);
+  if (rq == 2) return launch_rq<kPick, 2, Op>(a, grid, threads, smem, stream);
+  if (rq == 4) return launch_rq<kPick, 4, Op>(a, grid, threads, smem, stream);
   return cudaErrorInvalidValue;
 }
 

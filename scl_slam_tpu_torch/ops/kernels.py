@@ -14,11 +14,12 @@ K3        ``nearest_neighbors_pallas``    ``csrc/nn_select.cu`` (shares
                                           K4's kernel)
 K4        ``nn_select_pallas``            ``csrc/nn_select.cu``
 K5        ``icp_moments_batched_pallas``  ``csrc/icp_moments.cu`` (the
-          (variants ``mineq`` and         streaming loop in
-          ``argmin``)                     ``csrc/batched_nn.cuh``)
+          (variants ``mineq`` and         split-target loop)
+          ``argmin``)
 K6        ``ransac_counts_batched_pallas``  ``csrc/ransac_counts.cu``
 K7        ``nn_index_batched_pallas``     ``csrc/nn_select_batched.cu``
 K8        ``nn_select_batched_mxu_pallas``  ``csrc/nn_select_batched.cu``
+                                          (the split-target loop)
 ========  ==============================  ===================================
 
 K5, K7, K8 and K1's argmin body run behind the batched-ICP switches of
@@ -32,13 +33,14 @@ kernels are compiled on first use with ``nvcc`` (for ``sm_90a``, with
 all started together, then one link) into a shared library with a plain C
 interface under ``_build/``, and loaded with ``ctypes``.
 ``LAUNCHES`` counts the kernel launches per wrapper (K1 per body), so a
-run can show that it went through them (K5 is two launches, a partial
-pass and a reduction, counted as one call).
+run can show that it went through them.
 
-K1, K7, K4 and K3 split the target axis (``csrc/nn_split.cuh``): their
-launch geometry comes from :func:`nn_split_geometry`, and with more than
-one slice the last block of a query group to arrive merges them, counted
-on arrival counters that each entry point owns (:func:`_arrivals`).
+K1, K7, K8, K4, K3 and K5 run one split-target 1-NN
+(``csrc/nn_split.cuh``) with compile-time policies for where a query
+comes from, the distance and the finish: their launch geometry comes
+from :func:`nn_split_geometry`, and with more than one slice the last
+block of a query group to arrive merges them, counted on arrival counters
+that each entry point owns (:func:`_arrivals`).
 """
 from __future__ import annotations
 
@@ -161,11 +163,11 @@ def load_library() -> ctypes.CDLL:
             lib.scl_nn_select_batched.restype = i
             lib.scl_nn_index_batched.argtypes = [p] * 8 + [i] * 8 + [p]
             lib.scl_nn_index_batched.restype = i
-            lib.scl_nn_select_batched_mxu.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.scl_nn_select_batched_mxu.argtypes = [p] * 8 + [i] * 8 + [p]
             lib.scl_nn_select_batched_mxu.restype = i
-            lib.scl_icp_moments_batched.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i, i, p,
-            ]
+            lib.scl_icp_moments_batched.argtypes = (
+                [p] * 12 + [i] * 3 + [ctypes.c_float] + [i] * 6 + [p]
+            )
             lib.scl_icp_moments_batched.restype = i
             lib.scl_max_image.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.scl_max_image.restype = i
@@ -199,7 +201,7 @@ def _stream(device: torch.device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The split-target 1-NN of K1, K7, K4 and K3 (csrc/nn_split.cuh)
+# The split-target 1-NN of K1, K7, K8, K4, K3 and K5 (csrc/nn_split.cuh)
 # ---------------------------------------------------------------------------
 
 # streaming multiprocessors of an H100 SXM
@@ -220,12 +222,14 @@ class SplitGeometry(NamedTuple):
 
 
 # (warps a block, queries a lane, warps to aim for, fewest targets a warp),
-# chosen by scripts/torch_nn_split_sweep.py on an H100: K1 and K7 at about
-# 48 warps an SM (all that fit); K4 and K3 at about 16 (more slices cost
-# more in the merge than they gain in the walk), and in smaller blocks below
-# 4 M pairs (the live path's coarse pass), where a launch is mostly its
-# fixed costs
+# chosen by scripts/torch_nn_split_sweep.py on an H100: K1, K7 and K8 at
+# about 48 warps an SM (all that fit); K4 and K3 at about 16 (more slices
+# cost more in the merge than they gain in the walk), and in smaller blocks
+# below 4 M pairs (the live path's coarse pass), where a launch is mostly
+# its fixed costs; K5 in one slice at the replay shapes (its finish makes
+# the last block's merge dearer), mineq in blocks of 8 warps, argmin of 16
 K1_SPLIT = (8, 2, 48 * _SMS, 64)
+K5_SPLIT = {"mineq": (8, 2, 16 * _SMS, 256), "argmin": (16, 2, 16 * _SMS, 256)}
 K4_SPLIT = (16, 2, 2048, 32)
 K4_SPLIT_SMALL = (4, 2, 2048, 64)
 _K4_SMALL_PAIRS = 1 << 22
@@ -249,8 +253,14 @@ def nn_split_geometry(
 
 
 def k1_geometry(B: int, nq: int, nt: int) -> SplitGeometry:
-    """K1's and K7's launch geometry at [B, Nq] x [B, ., Nt]."""
+    """K1's, K7's and K8's launch geometry at [B, Nq] x [B, ., Nt]."""
     return nn_split_geometry(B, nq, nt, *K1_SPLIT)
+
+
+def k5_geometry(B: int, nq: int, nt: int, variant: str = "mineq") -> SplitGeometry:
+    """K5's launch geometry for its ``variant`` body at src4 [B, 4, Nq] x
+    payload [B, 4, Nt]."""
+    return nn_split_geometry(B, nq, nt, *K5_SPLIT[variant])
 
 
 def k4_geometry(nq: int, nt: int) -> SplitGeometry:
@@ -577,16 +587,26 @@ def nn_select_batched_mxu(
     if query.device.type == "cpu":
         return nn_select_batched_mxu_plain(query, payload, active)
     _check_batched_nn_cuda(query, payload)
+    return _launch_nn_select_batched_mxu(query, payload, active)
+
+
+def _launch_nn_select_batched_mxu(query, payload, active, geom=None):
+    """K8's launch on checked CUDA inputs, at ``geom`` (default
+    :func:`k1_geometry`)."""
     B, nq, nt = query.shape[0], query.shape[1], payload.shape[2]
-    act = active.to(torch.int32).contiguous()
-    d2 = torch.empty((B, nq), dtype=torch.float32, device=query.device)
-    sel = torch.empty((B, 4, nq), dtype=torch.float32, device=query.device)
+    dev = query.device
+    d2 = torch.empty((B, nq), dtype=torch.float32, device=dev)
+    sel = torch.empty((B, 4, nq), dtype=torch.float32, device=dev)
     if B == 0 or nq == 0:
         return d2, sel
+    g = geom or k1_geometry(B, nq, nt)
+    act = active.to(torch.int32).contiguous()
+    part_d, part_i, _, arrivals = _split_scratch(B, nq, g, dev, False, "nn_select_batched_mxu")
     lib = load_library()
     rc = lib.scl_nn_select_batched_mxu(
         query.data_ptr(), payload.data_ptr(), act.data_ptr(), d2.data_ptr(),
-        sel.data_ptr(), B, nq, nt, query.device.index or 0, _stream(query.device),
+        sel.data_ptr(), *_ptrs((part_d, part_i, arrivals)), B, nq, nt,
+        g.threads, g.rq, g.slice_len, g.slices, dev.index or 0, _stream(dev),
     )
     _check_launch(lib, rc, "nn_select_batched_mxu")
     LAUNCHES["nn_select_batched_mxu"] += 1
@@ -606,8 +626,18 @@ M_WD2 = 16       # sum w * d2                 (fitness numerator)
 M_NSRC = 17      # count of valid source points (inlier_frac denominator)
 M_SLOTS = 18
 
-# queries per block of the CUDA kernel's first pass (csrc/batched_nn.cuh)
-_K5_QUERY_BLOCK = 64
+
+def k5_sum_roundings(g: SplitGeometry, variant: str = "mineq") -> int:
+    """The most roundings a term of K5 passes through on its way into its
+    sum, in the kernel's order at geometry ``g`` (``csrc/icp_moments.cu``):
+    its own product (1), the ``rq`` queries of a lane in order (rq - 1),
+    the 32-lane shuffle tree (5), the warps (0: they merge nearest
+    neighbours, not sums), the tie average of a mineq selection summed
+    range by range (2: within 2 ulp of the payload, chip_smoke.TIE_ULPS),
+    then the lane's query groups in ascending order (q_groups - 1). A
+    float32 sum whose every term passes through at most d roundings is
+    within about d * 2**-24 of their absolute mass of the exact sum."""
+    return 1 + (g.rq - 1) + 5 + (2 if variant == "mineq" else 0) + (g.q_groups - 1)
 
 
 def icp_moments_terms_plain(
@@ -703,18 +733,31 @@ def icp_moments_batched(
              "src4, payload, R and t must be contiguous")
     nq, nt = src4.shape[2], payload.shape[2]
     _require(nt > 0 and B < 65536 and B * 4 * max(nq, nt) < 2**31, "sizes out of range")
+    return _launch_icp_moments_batched(
+        src4, payload, R, t, active, float(max_corr_dist) ** 2, variant
+    )
+
+
+def _launch_icp_moments_batched(src4, payload, R, t, active, maxd2, variant, geom=None):
+    """K5's launch on checked CUDA inputs, at ``geom`` (default
+    :func:`k5_geometry`)."""
+    B, nq, nt = src4.shape[0], src4.shape[2], payload.shape[2]
     dev = src4.device
-    m = torch.zeros((B, M_SLOTS), dtype=torch.float32, device=dev)
     if B == 0 or nq == 0:
-        return m
+        return torch.zeros((B, M_SLOTS), dtype=torch.float32, device=dev)
+    g = geom or k5_geometry(B, nq, nt, variant)
     act = active.to(torch.int32).contiguous()
-    n_blocks = -(-nq // _K5_QUERY_BLOCK)
-    partial = torch.empty((B, n_blocks, M_SLOTS), dtype=torch.float32, device=dev)
+    scratch = _split_scratch(B, nq, g, dev, variant == "mineq", "icp_moments_batched")
+    # each query group's sums, and the lanes' arrival counters for their sum
+    rows = torch.empty((B, g.q_groups, M_SLOTS), dtype=torch.float32, device=dev)
+    groups = _arrivals("icp_moments_batched_groups", B, dev)
+    m = torch.empty((B, M_SLOTS), dtype=torch.float32, device=dev)
     lib = load_library()
     rc = lib.scl_icp_moments_batched(
         src4.data_ptr(), payload.data_ptr(), R.data_ptr(), t.data_ptr(), act.data_ptr(),
-        partial.data_ptr(), m.data_ptr(), B, nq, nt, float(max_corr_dist) ** 2,
-        VARIANTS.index(variant), dev.index or 0, _stream(dev),
+        *_ptrs(scratch), *_ptrs((rows, groups, m)), B, nq, nt, maxd2,
+        VARIANTS.index(variant), g.threads, g.rq, g.slice_len, g.slices,
+        dev.index or 0, _stream(dev),
     )
     _check_launch(lib, rc, "icp_moments_batched")
     LAUNCHES["icp_moments_batched"] += 1

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Launch-geometry sweep of the split-target 1-NN kernels of the PyTorch
-port (K1 both bodies, K7, K4, K3: ``scl_slam_tpu_torch/csrc/nn_split.cuh``)
-on one NVIDIA GPU.
+port (K1 both bodies, K7, K8, K4, K3, K5 both bodies:
+``scl_slam_tpu_torch/csrc/nn_split.cuh``) on one NVIDIA GPU.
 
 Run from the root of a checkout on the machine with the card:
 
-    python3 scripts/torch_nn_split_sweep.py [--quick]
+    python3 scripts/torch_nn_split_sweep.py [--quick] [--kernels K5,K8]
 
 Builds the kernels (printing ptxas' registers and stack of the split
 kernels), prints the floor of a timed launch (a one-element add replayed
@@ -14,13 +14,16 @@ queries against 64 targets in 1, 2 and 8 slices), then for each kernel at the
 shapes of its main path times every geometry of the grid below by
 CUDA-graph replays (chip_smoke.time_graph, as PERF.md's rows) and checks
 each against the plain version on the same inputs (d2 and index or
-selection bit-equal; K1-mineq's selection within chip_smoke.TIE_ULPS).
-Prints one line per (kernel, shape, geometry) and, per shape, the fastest
-geometry and the default one (``kernels.k1_geometry`` / ``k4_geometry``),
-the default also with 20 launches captured in one graph (the device time
-without the host's cost between replays). The inputs are chip_smoke.py's
-(planted ties, padded targets, inactive lanes). ``--quick`` times the
-default geometries only. Exits non-zero on a mismatch.
+selection bit-equal; K1-mineq's selection within chip_smoke.TIE_ULPS; K5
+its counts equal and every sum within chip_smoke.K5_MASS_TOL of its
+terms' mass). Prints one line per (kernel, shape, geometry) and, per
+shape, the fastest geometry and the default one (``kernels.k1_geometry``
+/ ``k4_geometry`` / ``k5_geometry``), the default also with 20 launches
+captured in one graph (the device time without the host's cost between
+replays). The inputs are chip_smoke.py's (planted ties, padded targets,
+inactive lanes; K5's and K8's tie-free, as phases 18 and 20).
+``--quick`` times the default geometries only; ``--kernels`` names the
+kernels to sweep (default all). Exits non-zero on a mismatch.
 """
 from __future__ import annotations
 
@@ -69,7 +72,10 @@ def graph_multi(torch, fn, n: int = 20, reps: int = 10) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="the default geometries only")
+    ap.add_argument("--kernels", default="K1,K7,K4,K3,K5,K8",
+                    help="comma-separated kernels to sweep")
     args = ap.parse_args()
+    which = set(args.kernels.split(","))
     import torch
 
     from scl_slam_tpu_torch.ops import kernels as K
@@ -87,7 +93,7 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # (warps a block, queries a lane, warps to aim for, fewest targets a warp)
     grid = [(w, rq, ww * sms, mw) for w, rq, ww, mw in
-            itertools.product((4, 8, 16), (2, 4), (16, 32, 48), (32, 64, 128))]
+            itertools.product((4, 8, 16), (2, 4), (16, 32, 48), (32, 64, 128, 256))]
     bad = 0
 
     one = torch.zeros(1, device="cuda")
@@ -103,6 +109,8 @@ def main() -> int:
 
     def sweep(name, shape, lanes, nq, nt, active_lanes, launch, plain, check, default):
         nonlocal bad
+        if name.split("-")[0] not in which:
+            return
         ref = plain()
         geoms = {default}
         if not args.quick:
@@ -171,6 +179,36 @@ def main() -> int:
               lambda: K.nearest_neighbors_plain(q, t),
               lambda out, ref: eq(out[0], ref[0], "d2") or eq(out[1], ref[1], "index"),
               K.k4_geometry(nq, nt))
+    # K8 at the replay shape, on recentred coordinates (phase 20's inputs)
+    B, nq, nt = 32, 1024, 8192
+    q, p, act = cs.tie_free_inputs(torch, B, nq, nt, seed=8, recentre=True)
+    sweep("K8", f"{B}x{nq}x{nt}", B, nq, nt, int(act.sum().item()),
+          lambda g: K._launch_nn_select_batched_mxu(q, p, act, g),
+          lambda: K.nn_select_batched_mxu_plain(q, p, act),
+          lambda out, ref: eq(out[0], ref[0], "d2") or eq(out[1], ref[1], "sel"),
+          K.k1_geometry(B, nq, nt))
+
+    # K5 both bodies at the replay's two ICP stage shapes (phase 18's inputs)
+    for B, nq, nt in ((32, 1024, 8192), (32, 256, 2048)):
+        k5 = cs.k5_inputs(torch, B, nq, nt, seed=nq + 5)
+        n_act = int(k5[4].sum().item())
+        for variant in ("mineq", "argmin"):
+            terms = K.icp_moments_terms_plain(*k5, 3.0, variant=variant).double()
+            exact, mass = terms.sum(dim=1), terms.abs().sum(dim=1)
+
+            def launch(g, v=variant):
+                return K._launch_icp_moments_batched(*k5, 9.0, v, g)
+
+            def check_k5(out, ref, exact=exact, mass=mass):
+                counts = [K.M_W, K.M_NSRC]
+                if not torch.equal(out[:, counts], ref[:, counts]):
+                    return "counts"
+                err = ((out.double() - exact).abs() / mass.clamp(min=1e-300)).max().item()
+                return "" if err <= cs.K5_MASS_TOL else f"mass error {err:.3g}"
+
+            sweep(f"K5-{variant}", f"{B}x{nq}x{nt}", B, nq, nt, n_act, launch,
+                  lambda v=variant: K.icp_moments_batched_plain(*k5, 3.0, variant=v),
+                  check_k5, K.k5_geometry(B, nq, nt, variant))
     print(f"mismatches: {bad}", flush=True)
     return 1 if bad else 0
 

@@ -410,30 +410,59 @@ def test_k1_argmin_and_k7_cuda_kernels_match_plain(cuda_device):
 def test_k8_cuda_kernel_matches_plain(cuda_device):
     """The expanded form in the same order on both sides: d2 and the
     selection bit-equal, on recentred coordinates (as the caller passes
-    them) and at ragged sizes."""
+    them), at the replay path's shape and ragged ones (nt = 1, nq = 1, nq
+    off a query group, nt off a slice), with a lane full of ties (the
+    lowest index wins); then a batch of inactive lanes only (inf, 0)."""
     kernels.reset_launch_counts()
-    shapes = ((32, 1024, 8192), (5, 1000, 3000))
+    shapes = ((32, 1024, 8192), (5, 1000, 3000), (4, 5, 1), (3, 1, 700), (3, 37, 1000),
+              (5, 256, 2051))
     for B, nq, nt in shapes:
-        q, payload, active = (torch.from_numpy(x).to(cuda_device) for x in nn_inputs(nq, B, nq, nt))
-        d, sel = kernels.nn_select_batched_mxu(q, payload, active)
-        d_ref, sel_ref = kernels.nn_select_batched_mxu_plain(q, payload, active)
+        q, payload, active = nn_inputs(nq + nt, max(B, 3), nq, max(nt, 3))
+        payload = tie_heavy(payload[..., :nt], 0)
+        q[0, :4] = np.float32([4.0, 8.0, 13.0])
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+                for x in (q[:B], payload[:B], active[:B])]
+        d, sel = kernels.nn_select_batched_mxu(*args)
+        d_ref, sel_ref = kernels.nn_select_batched_mxu_plain(*args)
         torch.cuda.synchronize()
         assert torch.equal(d, d_ref) and torch.equal(sel, sel_ref)
         assert torch.isinf(d[1]).all() and (sel[1] == 0).all()
-    assert kernels.LAUNCHES["nn_select_batched_mxu"] == len(shapes)
+        assert (sel[0, :3, :4].T == torch.tensor([4.0, 8.0, 12.0], device=cuda_device)).all()
+    d, sel = kernels.nn_select_batched_mxu(args[0], args[1], torch.zeros_like(args[2]))
+    assert torch.isinf(d).all() and (sel == 0).all()
+    assert kernels.LAUNCHES["nn_select_batched_mxu"] == len(shapes) + 1
+
+
+def tie_heavy_moments(args, n):
+    """K5 inputs with lane 0 full of ties: tie_heavy's two target points,
+    the identity pose, and its first n source points at (4, 8, 13), at
+    unit distance from every target, the next n at (4, 8.25, 12.5), tied
+    among the targets at z = 12."""
+    src4, payload, R, t, active = (x.cpu().numpy().copy() for x in args)
+    payload = tie_heavy(payload, 0)
+    R[0], t[0] = np.eye(3, dtype=np.float32), 0.0
+    src4[0, :3, :n] = np.float32([[4.0], [8.0], [13.0]])
+    src4[0, :3, n : 2 * n] = np.float32([[4.0], [8.25], [12.5]])
+    src4[0, 3, : 2 * n] = 1.0
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(args[0].device)
+            for x in (src4, payload, R, t, active)]
 
 
 @pytest.mark.cuda
 def test_k5_cuda_kernel_matches_plain(cuda_device):
-    """Both bodies at the replay path's two stage shapes and at a ragged
-    size: the counts (w, n_src) equal to the plain version's, every sum
-    within 2e-6 of its terms' absolute mass of their exact sum (the
-    kernel's float32 order rounds each term at most 22 times:
-    chip_smoke.py's K5_MASS_TOL), the inactive lane zero."""
+    """Both bodies at the replay path's two stage shapes and ragged ones
+    (nt = 1, nq = 1, nq off a query group, nt off a slice; 3 x 200 x 8,195
+    in 4 and 2 slices, the others in one), with a lane full of ties: the counts (w, n_src) equal to the plain version's,
+    every sum within 2e-6 of its terms' absolute mass of their exact sum
+    (the kernel's float32 order rounds each term at most
+    kernels.k5_sum_roundings times, 24 at 32 x 1,024 x 8,192:
+    chip_smoke.py's K5_MASS_TOL), the inactive lane zero; then a batch of
+    inactive lanes only (zeros)."""
     kernels.reset_launch_counts()
-    shapes = ((32, 1024, 8192), (32, 256, 2048), (5, 1000, 3000))
+    shapes = ((32, 1024, 8192), (32, 256, 2048), (5, 1000, 3000), (4, 5, 1), (3, 1, 700),
+              (3, 37, 1000), (5, 256, 2051), (3, 200, 8195))
     for B, nq, nt in shapes:
-        args = moments_inputs(B + nq, B, nq, nt, cuda_device)
+        args = tie_heavy_moments(moments_inputs(B + nq, B, nq, nt, cuda_device), min(nq // 4, 64))
         for variant in ("mineq", "argmin"):
             m = kernels.icp_moments_batched(*args, 3.0, variant=variant)
             ref = kernels.icp_moments_batched_plain(*args, 3.0, variant=variant)
@@ -443,5 +472,8 @@ def test_k5_cuda_kernel_matches_plain(cuda_device):
             terms = kernels.icp_moments_terms_plain(*args, 3.0, variant=variant).double()
             err = (m.double() - terms.sum(dim=1)).abs()
             assert (err <= 2e-6 * terms.abs().sum(dim=1)).all()
-            assert (m[1] == 0).all() and (m[0, kernels.M_W] > nq // 4)
-    assert kernels.LAUNCHES["icp_moments_batched"] == 2 * len(shapes)
+            assert (m[1] == 0).all() and (m[2, kernels.M_W] > nq // 4)
+            assert m[0, kernels.M_W] >= 2 * min(nq // 4, 64)  # the tie-heavy lane's planted
+    m = kernels.icp_moments_batched(*args[:4], torch.zeros_like(args[4]), 3.0)
+    assert (m == 0).all()
+    assert kernels.LAUNCHES["icp_moments_batched"] == 2 * len(shapes) + 1
