@@ -21,8 +21,14 @@ Phases (any failure raises, and the script exits non-zero):
    (blocks, warps per SM, slices), the time beside PERF.md's row from
    before the split-target design, and the share of the bound beside the
    50% issue ceiling;
-4. K2 (max image) against its plain version at 32 x 65,536 points into
-   20 x 60 bins: bit-equal; both times;
+4. K2 (max image) against its plain version into 20 x 60 bins at every
+   shape the main paths launch it: one frame of 131,072, 65,536 and 32,768
+   points of ``dense_world`` scans (live-kitti, ``run_multi``'s
+   ``add_frame``, the demo), 16 and 32 frames of 65,536 points of bench.py's
+   random scans (fleet bench, replay bench): bit-equal; kernel, plain and
+   ``scatter_reduce_`` times, the launch geometry, the bound and its share,
+   the row from before the redesign where there is one, and the floor of a
+   timed launch;
 5. the replay slice at the bench configuration (bench.py's pipeline
    workload: 192 frames of 65,536 points, 4,096-keyframe DB) through
    ``Mapper.replay``: warm-up, then timed on a fresh Mapper; the K1 and K2
@@ -69,10 +75,11 @@ Phases (any failure raises, and the script exits non-zero):
 12. ``run_multi --robots 2 --transport tcp`` on the card: two worker
    processes share it and verify inter-robot loops over sockets;
 13. K6 (batched RANSAC hypothesis scoring: inlier counts) against its
-   plain version on the card at the fleet bench's 16 x 256 x 1,024, at a
-   full keyframe's 16 x 256 x 4,096 and at a ragged 3 x 37 x 1,000, with
-   points planted exactly on the threshold and a lane without a good
-   point: counts equal;
+   plain version on the card at the fleet run's 2 x 256 x 1,024, the fleet
+   bench's 16 x 256 x 1,024, a full keyframe's 16 x 256 x 4,096 and a
+   ragged 3 x 37 x 1,000, with points planted exactly on the threshold and
+   a lane without a good point: counts equal; times, the launch geometry,
+   the bound and its share, the row from before the redesign;
 14. the fleet bench at full width (bench.py's fleet workload built in code:
    2 robots x 2,048 keyframes of 4,096 points, 65,536-point scans,
    8,192-point submaps, 20 ICP iterations): 4 steps of 16 keyframes through
@@ -125,12 +132,17 @@ Phases (any failure raises, and the script exits non-zero):
 
 Kernel times are CUDA events around replays of a CUDA graph of the call
 (device time without the host's launch cost), beside the eager call's
-time; each kernel's bound is the larger of its bytes over 3.35 TB/s and
+time and, for K2 and K6, 20 calls to a graph (without the host's replay
+between launches, which a launch of a few microseconds does not hide);
+each kernel's bound is the larger of its bytes over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (the H100 SXM data sheet at 700 W),
 counted from this run's shapes (9 operations a query-target pair for K1,
-K3, K4, K5, K7 and K8). The line before the last is a JSON object
-with one entry per kernel; the last line is ``{"ok": true, "device":
-{...}}``. This script imports nothing of JAX.
+K3, K4, K5, K7 and K8, 27 a hypothesis-point pair for K6, 13 bytes a
+point for K2). The line before the last is a JSON object
+with one entry per kernel (K2's and K6's also with ``graph20_ms``, the
+time a launch of 20 to a graph, since their ``ms`` at the one-frame
+shapes reads the launch floor); the last line is ``{"ok": true,
+"device": {...}}``. This script imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -197,6 +209,32 @@ def time_graph(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_graph_many(torch, fn, n: int = 20, reps: int = 10) -> float:
+    """Mean milliseconds per call of ``fn`` with ``n`` calls captured in one
+    CUDA graph: the device's time without the host's cost between replays,
+    which bounds :func:`time_graph` from below for a launch shorter than
+    the host's replay."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n)
+
+
 # the H100 SXM's published peaks at 700 W (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -211,7 +249,8 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 # PERF.md's rows (NVIDIA H100 80GB HBM3, 700.00 W; CUDA-graph replays):
-# each kernel's time before it moved onto the split-target design
+# each kernel's time before it moved onto the split-target design, or
+# before its redesign
 ROW_MS = {
     "K1-mineq full": 0.4269, "K1-mineq coarse": 0.1060,
     "K1-argmin replay": 0.1847, "K1-argmin fleet_ransac": 0.1369,
@@ -221,6 +260,9 @@ ROW_MS = {
     "K5-mineq full": 0.4334, "K5-mineq coarse": 0.1101,
     "K5-argmin full": 0.1830, "K5-argmin coarse": 0.0401,
     "K8 replay": 0.1784,
+    # K2 and K6 before their redesign for Hopper (the other shapes of
+    # phases 4 and 13 had no row)
+    "K2 replay": 0.0228, "K6 fleet": 0.0091, "K6 keyframe": 0.0280,
 }
 
 
@@ -427,44 +469,116 @@ def phase_k1(torch, kernels) -> dict:
     return res
 
 
-def phase_k2(torch, kernels) -> dict:
+# K2 at the shapes the main paths launch it: (label, B, N, scans, path and
+# launches); dense: chip_smoke's dense_world scans (the live widths), bench:
+# bench.py's random scans (every bin hit)
+K2_SHAPES = (
+    ("live_kitti", 1, 131072, "dense", "live-kitti, 260 launches"),
+    ("add_frame", 1, 65536, "dense", "run_multi add_frame"),
+    ("demo", 1, 32768, "dense", "demo, 120 launches"),
+    ("fleet", 16, 65536, "bench", "fleet-bench, 4 launches"),
+    ("replay", 32, 65536, "bench", "replay bench, 6 a chunk"),
+)
+
+
+def k2_inputs(torch, B, n, kind):
+    """K2's inputs on the card as ``descriptors/scan_context.make`` hands
+    them over (20 x 60 bins, 80 m, heights + 1.65 m): B dense_world scans
+    of up to n points (padded, as the live path pads a scan) or B of
+    bench.py's random scans, one of them partly padded."""
+    from scl_slam_tpu_torch.io import kitti as kio
     from scl_slam_tpu_torch.ops import pointcloud as pc
 
     dev = torch.device("cuda")
-    xyz = torch.from_numpy(np.stack(bench_scans(32, 65536, seed=1))).to(dev)
-    mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
-    mask[5, 40000:] = False  # one partly padded frame
+    if kind == "dense":
+        world = dense_world()
+        gt = kio.loop_trajectory(n_frames=16, radius=45.0, laps=2.0)
+        xyz = np.zeros((B, n, 3), np.float32)
+        mask = np.zeros((B, n), bool)
+        for b in range(B):
+            scan = world.scan_at(gt[b], max_points=n, seed=b)
+            xyz[b, : len(scan)] = scan
+            mask[b, : len(scan)] = True
+        xyz, mask = torch.from_numpy(xyz).to(dev), torch.from_numpy(mask).to(dev)
+    else:
+        xyz = torch.from_numpy(np.stack(bench_scans(B, n, seed=1))).to(dev)
+        mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+        mask[min(5, B - 1), n * 5 // 8 :] = False  # one partly padded frame
     ring, sector, valid = pc.polar_bins(xyz, mask, 20, 60, 80.0)
     z = (xyz[..., 2] + 1.65).contiguous()
-    args = (z, ring.contiguous(), sector.contiguous(), valid.contiguous(), 20, 60)
+    return (z, ring.contiguous(), sector.contiguous(), valid.contiguous(), 20, 60)
+
+
+def k2_case(torch, kernels, args, full: bool = True) -> dict:
+    """K2 on ``args`` against its plain version (bit-equal, or raise), and
+    its time by graph replays, alone and 20 to a graph; with ``full`` also the eager call's, the
+    plain version's and the library call's (``scatter_reduce_`` "amax"
+    over the flat bin index, prepared beforehand; it must equal too)."""
     img = kernels.max_image(*args)
     ref = kernels.max_image_plain(*args)
     torch.cuda.synchronize()
     if not torch.equal(img, ref):
         bad = (img != ref).sum().item()
         raise AssertionError(f"K2: image differs from the plain version in {bad} bins")
-    call_ms = time_cuda(torch, lambda: kernels.max_image(*args), reps=50)
-    ms = time_graph(torch, lambda: kernels.max_image(*args), reps=50)
-    plain_ms = time_graph(torch, lambda: kernels.max_image_plain(*args), reps=20)
-    # the one PyTorch call with the same result: scatter_reduce_ "amax"
-    # over the flat bin index (the index and values prepared beforehand)
-    ok = args[3] & (z > 0)
-    flat = torch.where(ok, ring.long() * 60 + sector.long(), 1200)
+    res = {"max_abs_err": float((img - ref).abs().max().item()),
+           "ms": time_graph(torch, lambda: kernels.max_image(*args), reps=50),
+           "many_ms": time_graph_many(torch, lambda: kernels.max_image(*args))}
+    if not full:
+        return res
+    z, ring, sector, valid, R, S = args
+    B = z.shape[0]
+    ok = valid & (z > 0)
+    flat = torch.where(ok, ring.long() * S + sector.long(), R * S)
     vals = torch.where(ok, z, 0.0)
-    lib_img = torch.zeros((32, 1201), device=dev)
+    lib_img = torch.zeros((B, R * S + 1), device=z.device)
     lib_img.scatter_reduce_(1, flat, vals, "amax", include_self=True)
-    if not torch.equal(lib_img[:, :1200].reshape(32, 20, 60), ref):
+    if not torch.equal(lib_img[:, : R * S].reshape(B, R, S), ref):
         raise AssertionError("K2: scatter_reduce_ amax disagrees with the plain version")
-    library_ms = time_graph(
+    res["call_ms"] = time_cuda(torch, lambda: kernels.max_image(*args), reps=50)
+    res["plain_ms"] = time_graph(torch, lambda: kernels.max_image_plain(*args), reps=20)
+    res["library_ms"] = time_graph(
         torch, lambda: lib_img.scatter_reduce_(1, flat, vals, "amax", include_self=True), reps=50
     )
-    B, n = z.shape
-    bound_ms, bound_by = bound(B * n * (4 + 4 + 4 + 1) + B * 20 * 60 * 4, 2 * B * n)
-    log(f"[4] K2 32x65536 -> 20x60: bit-equal, kernel {ms:.4f} ms (eager call "
-        f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, scatter_reduce_ {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
-    return {"max_abs_err": float((img - ref).abs().max().item()), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    return res
+
+
+def launch_floor(torch) -> tuple[float, float]:
+    """ms of a timed launch that does nothing, a one-element add, replayed
+    as a CUDA graph as the kernels are timed: alone and 20 to a graph."""
+    one = torch.zeros(1, device="cuda")
+    return (time_graph(torch, lambda: one.add_(1), reps=50),
+            time_graph_many(torch, lambda: one.add_(1)))
+
+
+def phase_k2(torch, kernels) -> dict:
+    floor, floor_many = launch_floor(torch)
+    log(f"[4] the floor of a timed launch (a one-element add as a graph replay): {floor:.4f} ms "
+        f"alone, {floor_many:.4f} ms 20 to a graph")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, B, n, kind, path in K2_SHAPES:
+        args = k2_inputs(torch, B, n, kind)
+        res = k2_case(torch, kernels, args)
+        g = kernels.k2_geometry(B, n)
+        vec = kernels._vector_ok(n, args[:3], args[3:4])
+        # bytes: 13 a point (value, ring, sector, valid) read once, the image
+        # written once; operations: a compare and a max a point
+        bound_ms, bound_by = bound(B * n * (4 + 4 + 4 + 1) + B * 20 * 60 * 4, 2 * B * n)
+        res.update(bound_ms=bound_ms, bound_by=bound_by)
+        row = ROW_MS.get(f"K2 {label}")
+        before = (f"row before the redesign {row:.4f} ms, now {row / res['ms']:.2f}x as fast"
+                  if row else "no row before the redesign at this shape")
+        log(f"[4] K2 {label} {B}x{n} ({kind} scans; {path}) -> 20x60: bit-equal, kernel "
+            f"{res['ms']:.4f} ms (20 to a graph {res['many_ms']:.4f} ms, eager call "
+            f"{res['call_ms']:.4f} ms), plain "
+            f"{res['plain_ms']:.4f} ms, scatter_reduce_ {res['library_ms']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / res['ms']:.1f}% of the bound")
+        log(f"[4]   K2 {label} geometry: {B * g.chunks} blocks ({B * g.chunks / sms:.2f} per SM) "
+            f"of {g.threads} threads, {g.chunks} chunks of {g.chunk_len} points a frame "
+            f"({'atomics into a zeroed output' if g.chunks > 1 else 'stores'}), "
+            f"{'16-byte' if vec else 'scalar'} loads; {before}")
+        out[label] = res
+    return out
 
 
 def bench_cfg():
@@ -578,8 +692,8 @@ class BenchReplay:
 
 
 def phase_slice(torch, kernels, bench: BenchReplay) -> dict:
-    """Phase 5; returns the kernel launch counts of the untimed counting
-    run."""
+    """Phase 5; returns the replay's frames/s (median of 5 runs) and the
+    kernel launch counts of the untimed counting run."""
     from scl_slam_tpu_torch.geometry import se3
     from scl_slam_tpu_torch.runtime import mapper as M
 
@@ -624,7 +738,7 @@ def phase_slice(torch, kernels, bench: BenchReplay) -> dict:
     log(f"[5] ICP lanes {icp.size} of {n} frames, fitness {icp.min():.4f}-{icp.max():.4f} m^2 "
         f"against the gate {cfg.loop.history_fitness_score}")
     profile_replay(torch, M, cfg, (0, pose_b, xyz, mask, st0))
-    return launches
+    return {"frames_per_s": fps, "launches": launches}
 
 
 def profile_block(torch, tag, what, fn, table_name) -> None:
@@ -867,7 +981,8 @@ def dense_world(seed: int = 7):
 
 def phase_live_kitti(torch, kernels) -> dict:
     """Phase 9: per-keyframe latency of the live path at the KITTI widths,
-    then one ``Mapper.optimize()`` at the full capacity."""
+    then one ``Mapper.optimize()`` at the full capacity. Returns the
+    latency's p50 and p99, the solve's ms and the drive's launch counts."""
     from scl_slam_tpu_torch.geometry import se3
     from scl_slam_tpu_torch.io import kitti as kio
     from scl_slam_tpu_torch.runtime import mapper as M
@@ -919,8 +1034,9 @@ def phase_live_kitti(torch, kernels) -> dict:
     launches = dict(kernels.LAUNCHES)
     lat = np.array(lat[warm:])
     loops = int(m.state.graph.num_edges) - (n - 1) + int(m.state.loop_queue.count)
-    if launches["nn_select"] < 1 or m.icp_attempts < 1:
-        raise AssertionError(f"the KITTI-width live run launched no K4: {launches}")
+    if launches["nn_select"] < 1 or launches["max_image"] < n or m.icp_attempts < 1:
+        raise AssertionError(f"the KITTI-width live run launched no K4, or K2 less than once "
+                             f"a keyframe: {launches}")
     log(f"[9] add_frame + spin_once per keyframe at the kitti_velodyne widths, "
         f"{len(lat)} keyframes after {warm} of warm-up (unprofiled): p50 {np.percentile(lat, 50):.2f} ms, "
         f"p99 {np.percentile(lat, 99):.2f} ms, max {lat.max():.2f} ms; "
@@ -962,7 +1078,8 @@ def phase_live_kitti(torch, kernels) -> dict:
     queue_gt_loops(5)
     profile_block(torch, "[9]", "one more Mapper.optimize() with 32 loop factors",
                   m.optimize, "profile_solve.txt")
-    return launches
+    return {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "solve_ms": solve_ms, "launches": launches}
 
 
 def k3_inputs(torch, nq, nt, seed):
@@ -1262,38 +1379,73 @@ def ransac_inputs(torch, B, H, N, seed, thr=0.25):
             for x in (src, matched.astype(np.float32), good, R, t)], thr * thr
 
 
+# K6 at the shapes the main paths launch it: (label, B, H, N, path)
+K6_SHAPES = (
+    ("fleet_run", 2, 256, 1024, "fleet-run, 35 launches"),
+    ("fleet", 16, 256, 1024, "fleet-bench, 4 launches"),
+    ("keyframe", 16, 256, 4096, "a full keyframe"),
+    ("ragged", 3, 37, 1000, "ragged"),
+)
+
+
+def k6_case(torch, kernels, args, thr2, full: bool = True) -> dict:
+    """K6 on ``args`` against its plain version (counts equal, the lane
+    without a good point at 0, the points planted on the threshold out; or
+    raise), and its time by graph replays, alone and 20 to a graph; with
+    ``full`` also the eager call's and the plain version's."""
+    counts = kernels.ransac_counts_batched(*args, thr2)
+    ref = kernels.ransac_counts_batched_plain(*args, thr2)
+    torch.cuda.synchronize()
+    if not torch.equal(counts, ref):
+        raise AssertionError(f"K6: counts differ from the plain version in "
+                             f"{(counts != ref).sum().item()} places")
+    if not (counts[1] == 0).all():
+        raise AssertionError("K6: the lane without a good point has inliers")
+    q = args[0].shape[1] // 4
+    half = kernels.ransac_counts_batched(
+        *(a[:1, : 2 * q].contiguous() for a in args[:3]),
+        args[3][:1, :1].contiguous(), args[4][:1, :1].contiguous(), thr2,
+    )
+    if int(half[0, 0]) != int(args[2][0, q : 2 * q].sum()):
+        raise AssertionError("K6: the points planted on the threshold were miscounted")
+    res = {"max_abs_err": float((counts - ref).abs().max().item()),
+           "ms": time_graph(torch, lambda: kernels.ransac_counts_batched(*args, thr2), reps=50),
+           "many_ms": time_graph_many(torch, lambda: kernels.ransac_counts_batched(*args, thr2))}
+    if full:
+        res["call_ms"] = time_cuda(torch, lambda: kernels.ransac_counts_batched(*args, thr2),
+                                   reps=50)
+        res["plain_ms"] = time_graph(
+            torch, lambda: kernels.ransac_counts_batched_plain(*args, thr2), reps=10)
+    return res
+
+
 def phase_k6(torch, kernels) -> dict:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     res = {}
-    for B, H, N, label in ((16, 256, 1024, "fleet"), (16, 256, 4096, "keyframe"),
-                           (3, 37, 1000, "ragged")):
+    for label, B, H, N, path in K6_SHAPES:
         args, thr2 = ransac_inputs(torch, B, H, N, seed=B + H + N)
-        counts = kernels.ransac_counts_batched(*args, thr2)
-        ref = kernels.ransac_counts_batched_plain(*args, thr2)
-        torch.cuda.synchronize()
-        if not torch.equal(counts, ref):
-            raise AssertionError(f"K6 {label}: counts differ from the plain version in "
-                                 f"{(counts != ref).sum().item()} places")
-        if not (counts[1] == 0).all():
-            raise AssertionError(f"K6 {label}: the lane without a good point has inliers")
-        q = N // 4
-        half = kernels.ransac_counts_batched(
-            *(a[:1, : 2 * q].contiguous() for a in args[:3]),
-            args[3][:1, :1].contiguous(), args[4][:1, :1].contiguous(), thr2,
-        )
-        if int(half[0, 0]) != int(args[2][0, q : 2 * q].sum()):
-            raise AssertionError(f"K6 {label}: the points planted on the threshold were miscounted")
-        call_ms = time_cuda(torch, lambda: kernels.ransac_counts_batched(*args, thr2), reps=50)
-        ms = time_graph(torch, lambda: kernels.ransac_counts_batched(*args, thr2), reps=50)
-        plain_ms = time_graph(torch, lambda: kernels.ransac_counts_batched_plain(*args, thr2), reps=10)
+        r = k6_case(torch, kernels, args, thr2)
         # 27 FP32 operations per (hypothesis, point): 18 for the transform,
         # 3 subtracts, 3 multiplies, 2 adds and the compare; bytes: the
         # points once, the poses once, the counts written once
         bound_ms, bound_by = bound(B * N * (12 + 12 + 1) + B * H * (36 + 12 + 4), 27 * B * H * N)
-        log(f"[13] K6 {label} {B}x{H}x{N}: counts equal (the planted on-threshold points out), "
-            f"kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
-        res[label] = {"max_abs_err": float((counts - ref).abs().max().item()), "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        r.update(bound_ms=bound_ms, bound_by=bound_by)
+        g = kernels.k6_geometry(B, H, N)
+        vec = kernels._vector_ok(N, args[:2], args[2:3])
+        row = ROW_MS.get(f"K6 {label}")
+        before = (f"row before the redesign {row:.4f} ms, now {row / r['ms']:.2f}x as fast"
+                  if row else "no row before the redesign at this shape")
+        log(f"[13] K6 {label} {B}x{H}x{N} ({path}): counts equal (the planted on-threshold "
+            f"points out), kernel {r['ms']:.4f} ms (20 to a graph {r['many_ms']:.4f} ms, eager "
+            f"call {r['call_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / r['ms']:.1f}% of the bound (issue ceiling 50%)")
+        log(f"[13]   K6 {label} geometry: {B * g.groups * g.chunks} blocks "
+            f"({B * g.groups * g.chunks / sms:.2f} per SM) of {g.threads} threads, "
+            f"{kernels.K6_PTS} points a thread, {g.groups} groups of {g.hyps} hypotheses x "
+            f"{g.chunks} chunks a lane ({'atomics into a zeroed output' if g.chunks > 1 else 'stores'}), "
+            f"{'16-byte' if vec else 'scalar'} loads; {before}")
+        res[label] = r
     return res
 
 
@@ -2105,11 +2257,11 @@ def main() -> int:
     k1 = phase_k1(torch, kernels)
     k2 = phase_k2(torch, kernels)
     bench = BenchReplay(torch)
-    launches = phase_slice(torch, kernels, bench)
+    launches = phase_slice(torch, kernels, bench)["launches"]
     phase_cross_device(torch)
     k4 = phase_k4(torch, kernels)
     live = phase_live_demo(torch, kernels)
-    phase_live_kitti(torch, kernels)
+    kitti = phase_live_kitti(torch, kernels)
     k3 = phase_k3(torch, kernels)
     multi, inter2 = phase_multi(torch, kernels)
     phase_tcp(torch)
@@ -2126,24 +2278,33 @@ def main() -> int:
     phase_switch_decisions(torch, kernels)
 
     def entry(name, source, replaces, n, res, library_ms=None):
-        return {"name": name, "route": "cuda", "source": f"scl_slam_tpu_torch/csrc/{source}",
-                "replaces": f"scl_slam_tpu/ops/pallas_kernels.py:{replaces}", "launches": n,
-                "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
-                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": library_ms}
+        e = {"name": name, "route": "cuda", "source": f"scl_slam_tpu_torch/csrc/{source}",
+             "replaces": f"scl_slam_tpu/ops/pallas_kernels.py:{replaces}", "launches": n,
+             "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
+             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": library_ms}
+        if "many_ms" in res:
+            # K2 and K6 at one-frame shapes: "ms" (one launch a graph
+            # replay) reads the launch floor; 20 launches to a graph read
+            # the device's time a launch
+            e["graph20_ms"] = res["many_ms"]
+        return e
 
-    # launches: K1 and K2 from the replay run (phase 5), K4 from the live
-    # demo (phase 8), K3 from the two-robot run (phase 11), K6 from the
-    # fleet run (phase 15), K5, K7, K8 and K1's argmin body from the replay
+    # launches: K1 from the replay run (phase 5), K2 from the live path at
+    # the KITTI widths (phase 9; its time at that shape, [1, 131072]), K4
+    # from the live demo (phase 8), K3 from the two-robot run (phase 11), K6
+    # from the fleet run (phase 15; its time at that run's [2, 256, 1024]),
+    # K5, K7, K8 and K1's argmin body from the replay
     # under their switches (phase 21); no kernel but K2 has a single
     # PyTorch call (library_ms null)
     report = {"kernels": [
         entry("nn_select_batched", "nn_select_batched.cu", 273,
               launches["nn_select_batched"], k1["full"]),
-        entry("max_image", "max_image.cu", 1053, launches["max_image"], k2, k2["library_ms"]),
+        entry("max_image", "max_image.cu", 1053, kitti["launches"]["max_image"],
+              k2["live_kitti"], k2["live_kitti"]["library_ms"]),
         entry("nn_select", "nn_select.cu", 132, live["nn_select"], k4["full"]),
         entry("nearest_neighbors", "nn_select.cu", 532, multi["nearest_neighbors"], k3["full"]),
         entry("ransac_counts_batched", "ransac_counts.cu", 898, fleet["ransac_counts_batched"],
-              k6["fleet"]),
+              k6["fleet_run"]),
         entry("icp_moments_batched", "icp_moments.cu", 768,
               switches["FUSED_ICP"]["launches"]["icp_moments_batched"], k5["full"]),
         entry("nn_index_batched", "nn_select_batched.cu", 367,

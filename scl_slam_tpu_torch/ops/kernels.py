@@ -40,7 +40,9 @@ K1, K7, K8, K4, K3 and K5 run one split-target 1-NN
 comes from, the distance and the finish: their launch geometry comes
 from :func:`nn_split_geometry`, and with more than one slice the last
 block of a query group to arrive merges them, counted on arrival counters
-that each entry point owns (:func:`_arrivals`).
+that each entry point owns (:func:`_arrivals`). K2 and K6 take their
+grids from :func:`k2_geometry` and :func:`k6_geometry`; their blocks meet
+by integer atomics in an output that the same call zeroes first.
 """
 from __future__ import annotations
 
@@ -169,15 +171,15 @@ def load_library() -> ctypes.CDLL:
                 [p] * 12 + [i] * 3 + [ctypes.c_float] + [i] * 6 + [p]
             )
             lib.scl_icp_moments_batched.restype = i
-            lib.scl_max_image.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+            lib.scl_max_image.argtypes = [p] * 5 + [i] * 9 + [p]
             lib.scl_max_image.restype = i
             lib.scl_nn_select.argtypes = [p] * 7 + [i] * 8 + [p]
             lib.scl_nn_select.restype = i
             lib.scl_nearest_neighbors.argtypes = [p] * 7 + [i] * 7 + [p]
             lib.scl_nearest_neighbors.restype = i
-            lib.scl_ransac_counts_batched.argtypes = [
-                p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p,
-            ]
+            lib.scl_ransac_counts_batched.argtypes = (
+                [p] * 6 + [i] * 3 + [ctypes.c_float] + [i] * 6 + [p]
+            )
             lib.scl_ransac_counts_batched.restype = i
             lib.scl_cuda_error_string.argtypes = [i]
             lib.scl_cuda_error_string.restype = ctypes.c_char_p
@@ -768,6 +770,44 @@ def _launch_icp_moments_batched(src4, payload, R, t, active, maxd2, variant, geo
 # K2: bin-wise max image
 # ---------------------------------------------------------------------------
 
+class K2Geometry(NamedTuple):
+    """A launch of K2: a grid of (chunks, frames) blocks of ``threads``
+    threads; chunk c of a frame holds its points [c * chunk_len,
+    min(n, (c + 1) * chunk_len)), ``chunk_len`` a multiple of 4. With more
+    than one chunk the blocks of a frame meet by atomics in the output."""
+
+    threads: int
+    chunk_len: int
+    chunks: int
+
+
+# (threads, fewest points a block, blocks to aim for), chosen by
+# scripts/torch_k2_k6_sweep.py on an H100: every chunk adds a clear, a scan
+# and up to R x S global atomics on the addresses of the frame's other
+# chunks, so about a wave of blocks of 2,048 points or more beats filling
+# the card with short ones (PERF.md)
+K2_SPLIT = (512, 2048, 128)
+
+
+def k2_geometry(B: int, n: int, split=K2_SPLIT) -> K2Geometry:
+    """K2's launch geometry for B frames of n points: enough chunks a frame
+    that the grid reaches the blocks aimed for, none shorter than the
+    fewest points a block (but for a frame shorter than that), of equal
+    length up to a multiple of 4."""
+    threads, min_pts, want = split
+    chunks = max(1, min(-(-want // max(B, 1)), n // min_pts))
+    per = -(-n // chunks)
+    chunk_len = max(4, -(-per // 4) * 4)
+    return K2Geometry(threads, chunk_len, max(1, -(-n // chunk_len)))
+
+
+def _vector_ok(n: int, wide, narrow) -> bool:
+    """Whether a kernel may take its 16-byte loads: n % 4 == 0, the
+    ``wide`` (4-byte element) rows 16-byte aligned and the ``narrow`` (bool)
+    rows 4-byte aligned."""
+    return (n % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in wide)
+            and all(x.data_ptr() % 4 == 0 for x in narrow))
+
 
 def max_image_plain(
     values: torch.Tensor,
@@ -825,17 +865,26 @@ def max_image(
         "inputs must be contiguous",
     )
     B, n = values.shape
-    _require(B * max(n, num_rings * num_sectors) < 2**31, "sizes out of range")
-    out = torch.empty(
-        (B, num_rings, num_sectors), dtype=torch.float32, device=values.device
-    )
+    _require(B < 65536 and B * max(n, num_rings * num_sectors) < 2**31, "sizes out of range")
     if B == 0:
-        return out
+        return torch.empty(
+            (0, num_rings, num_sectors), dtype=torch.float32, device=values.device
+        )
+    return _launch_max_image(values, ring, sector, valid, num_rings, num_sectors)
+
+
+def _launch_max_image(values, ring, sector, valid, num_rings, num_sectors, geom=None):
+    """K2's launch on checked CUDA inputs (B > 0), at ``geom`` (default
+    :func:`k2_geometry`)."""
+    B, n = values.shape
+    dev = values.device
+    g = geom or k2_geometry(B, n)
+    out = torch.empty((B, num_rings, num_sectors), dtype=torch.float32, device=dev)
+    vec = _vector_ok(n, (values, ring, sector), (valid,))
     lib = load_library()
     rc = lib.scl_max_image(
-        values.data_ptr(), ring.data_ptr(), sector.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), B, n, num_rings, num_sectors,
-        values.device.index or 0, _stream(values.device),
+        *_ptrs((values, ring, sector, valid, out)), B, n, num_rings, num_sectors,
+        g.threads, g.chunk_len, g.chunks, int(vec), dev.index or 0, _stream(dev),
     )
     _check_launch(lib, rc, "max_image")
     LAUNCHES["max_image"] += 1
@@ -1032,6 +1081,38 @@ def _launch_nearest_neighbors(query, target, geom=None):
 # ---------------------------------------------------------------------------
 
 
+class K6Geometry(NamedTuple):
+    """A launch of K6: a grid of (groups, chunks, lanes) blocks of
+    ``threads`` threads; block (j, c, b) scores hypotheses [j * hyps,
+    min(H, (j + 1) * hyps)) of lane b over its points [c * threads * 4,
+    (c + 1) * threads * 4), 4 consecutive ones a thread. With more than one
+    chunk the blocks of a lane meet by atomics in the output."""
+
+    threads: int
+    hyps: int
+    groups: int
+    chunks: int
+
+
+# (threads, blocks to aim for, most hypotheses a block), chosen by
+# scripts/torch_k2_k6_sweep.py on an H100: about a wave of blocks at the
+# fleet run's 2 lanes, blocks of 16 hypotheses at the fleet bench's 16
+K6_SPLIT = (256, _SMS, 16)
+K6_PTS = 4  # points a thread: kPts of csrc/ransac_counts.cu
+
+
+def k6_geometry(B: int, H: int, N: int, split=K6_SPLIT) -> K6Geometry:
+    """K6's launch geometry for B lanes of H hypotheses over N points: the
+    points in chunks of ``threads * K6_PTS``, then as many hypotheses a
+    block (at least one, at most the split's) as leave the blocks aimed
+    for."""
+    threads, want, max_hyps = split
+    chunks = max(1, -(-N // (threads * K6_PTS)))
+    groups_wanted = -(-want // (max(B, 1) * chunks))
+    hyps = max(1, min(max_hyps, H, -(-H // groups_wanted)))
+    return K6Geometry(threads, hyps, max(1, -(-H // hyps)), chunks)
+
+
 def ransac_counts_batched_plain(
     source: torch.Tensor,
     matched: torch.Tensor,
@@ -1103,17 +1184,27 @@ def ransac_counts_batched(
     _require(all(x.is_contiguous() for x in (source, matched, good, R, t)),
              "inputs must be contiguous")
     _require(B < 65536 and B * max(n, H) * 9 < 2**31, "sizes out of range")
-    counts = torch.empty((B, H), dtype=torch.int32, device=source.device)
     if B == 0 or H == 0:
-        return counts
+        return torch.empty((B, H), dtype=torch.int32, device=source.device)
     if n == 0:
-        return counts.zero_()
-    lib = load_library()
+        return torch.zeros((B, H), dtype=torch.int32, device=source.device)
+    return _launch_ransac_counts(source, matched, good, R, t, thr2)
+
+
+def _launch_ransac_counts(source, matched, good, R, t, thr2, geom=None):
+    """K6's launch on checked CUDA inputs (B, H, N > 0), at ``geom``
+    (default :func:`k6_geometry`)."""
+    B, n = source.shape[:2]
+    H = R.shape[1]
     dev = source.device
+    g = geom or k6_geometry(B, H, n)
+    _require(g.chunks < 65536, "too many points a lane")
+    counts = torch.empty((B, H), dtype=torch.int32, device=dev)
+    vec = _vector_ok(n, (source, matched), (good,))
+    lib = load_library()
     rc = lib.scl_ransac_counts_batched(
-        source.data_ptr(), matched.data_ptr(), good.data_ptr(), R.data_ptr(),
-        t.data_ptr(), counts.data_ptr(), B, n, H, float(thr2), dev.index or 0,
-        _stream(dev),
+        *_ptrs((source, matched, good, R, t, counts)), B, n, H, float(thr2), g.threads,
+        g.hyps, g.groups, g.chunks, int(vec), dev.index or 0, _stream(dev),
     )
     _check_launch(lib, rc, "ransac_counts_batched")
     LAUNCHES["ransac_counts_batched"] += 1

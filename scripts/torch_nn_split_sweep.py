@@ -45,30 +45,6 @@ def sel_tol(payload) -> float:
     return cs.TIE_ULPS * 2.0 ** (np.floor(np.log2(scale)) - 23)
 
 
-def graph_multi(torch, fn, n: int = 20, reps: int = 10) -> float:
-    """ms a call with ``n`` calls captured in one CUDA graph (no host cost
-    between them)."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * n)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="the default geometries only")
@@ -98,7 +74,7 @@ def main() -> int:
 
     one = torch.zeros(1, device="cuda")
     print(f"floor: one-element add {cs.time_graph(torch, lambda: one.add_(1), reps=50):.4f} ms, "
-          f"20 to a graph {graph_multi(torch, lambda: one.add_(1)):.4f} ms each", flush=True)
+          f"20 to a graph {cs.time_graph_many(torch, lambda: one.add_(1)):.4f} ms each", flush=True)
     # K4's fixed costs: 1,024 queries against 64 targets, in 1 slice (no
     # merge across blocks) and in 2 and 8 (the arrival and the merge)
     q, p, _ = cs.k4_inputs(torch, 1024, 64, 4, seed=1)
@@ -131,7 +107,7 @@ def main() -> int:
             rows.append((ms, g))
         best_ms, best = min(rows)
         dflt = next(ms for ms, g in rows if g == default)
-        multi = graph_multi(torch, lambda: launch(default))
+        multi = cs.time_graph_many(torch, lambda: launch(default))
         print(f"== {name} {shape}: fastest {best_ms:.4f} ms at {tuple(best)}; default "
               f"{dflt:.4f} ms at {tuple(default)}, 20 to a graph {multi:.4f} ms each",
               flush=True)

@@ -291,16 +291,58 @@ def test_k1_cuda_kernel_matches_plain(cuda_device):
     assert kernels.LAUNCHES["nn_select_batched"] == len(K1_SHAPES) + 1
 
 
+def offset_rows(x, device):
+    """``x`` on the card as a contiguous view one element past an aligned
+    allocation: 4 bytes off 16-byte alignment for 4-byte elements, so the
+    kernels take their scalar loads."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=device)
+    flat[1:] = t.reshape(-1).to(device)
+    return flat[1:].view(t.shape)
+
+
+# (B, N, rings, sectors): live-kitti, the demo, the replay bench's lane
+# count, ragged N (the scalar loop), 64 x 64 = 4,096 bins
+K2_CUDA_SHAPES = ((1, 131072, 20, 60), (1, 32768, 20, 60), (4, 65536, 20, 60),
+                  (3, 65537, 20, 60), (2, 3, 20, 60), (1, 1, 20, 60), (4, 4100, 64, 64))
+
+
 @pytest.mark.cuda
 def test_k2_cuda_kernel_matches_plain(cuda_device):
+    """Bit-equal to the plain version at the main paths' shapes and ragged
+    ones, with an all-invalid frame, on rows 4 bytes off 16-byte alignment,
+    and at other geometries (one chunk, short chunks, other blocks)."""
     kernels.reset_launch_counts()
-    z, ring, sector, valid = image_inputs(8, 4, 65536)
-    args = [torch.from_numpy(x).to(cuda_device) for x in (z, ring, sector, valid)]
-    img = kernels.max_image(*args, 20, 60)
-    ref = kernels.max_image_plain(*args, 20, 60)
-    torch.cuda.synchronize()
-    assert torch.equal(img, ref)
-    assert kernels.LAUNCHES["max_image"] == 1
+    launches = 0
+    for B, n, R, S in K2_CUDA_SHAPES:
+        z, ring, sector, valid = image_inputs(8 + n, B, n, R, S)
+        if B > 1:
+            valid[-1] = False  # an all-invalid frame reads 0 everywhere
+        args = [torch.from_numpy(x).to(cuda_device) for x in (z, ring, sector, valid)]
+        img = kernels.max_image(*args, R, S)
+        ref = kernels.max_image_plain(*args, R, S)
+        torch.cuda.synchronize()
+        assert torch.equal(img, ref)
+        if B > 1:
+            assert (img[-1] == 0).all()
+        off = [offset_rows(x, cuda_device) for x in (z, ring, sector, valid)]
+        assert off[0].data_ptr() % 16 == 4
+        assert torch.equal(kernels.max_image(*off, R, S), ref)
+        launches += 2
+    # other geometries at a one-frame and a ragged shape: one chunk (plain
+    # stores), short chunks (many atomics a bin), other block sizes
+    for B, n in ((1, 131072), (3, 65537)):
+        z, ring, sector, valid = image_inputs(9 + n, B, n)
+        args = [torch.from_numpy(x).to(cuda_device) for x in (z, ring, sector, valid)]
+        ref = kernels.max_image_plain(*args, 20, 60)
+        splits = [(threads, pts, 4096) for threads in (128, 1024) for pts in (4, 512, 8192, n)]
+        for split in splits:
+            g = kernels.k2_geometry(B, n, split)
+            img = kernels._launch_max_image(*args, 20, 60, geom=g)
+            torch.cuda.synchronize()
+            assert torch.equal(img, ref), g
+        launches += len(splits)
+    assert kernels.LAUNCHES["max_image"] == launches
 
 
 @pytest.mark.cuda
@@ -350,21 +392,32 @@ def test_k3_cuda_kernel_matches_plain(cuda_device):
     assert torch.isinf(d).all() and (idx == 0).all()
 
 
+# (B, H, N): the fleet bench, a full keyframe, the fleet run, ragged (H off
+# the hypothesis group, N off 4 points: the scalar loads), one pair
+K6_CUDA_SHAPES = ((16, 256, 1024), (16, 256, 4096), (2, 256, 1024), (3, 37, 1000),
+                  (2, 67, 1001), (1, 1, 1))
+
+
 @pytest.mark.cuda
 def test_k6_cuda_kernel_matches_plain(cuda_device):
-    """Counts equal to the plain version's at the fleet's shape (16 lanes x
-    256 hypotheses x 1,024 points), at a full keyframe (4,096 points) and
-    at ragged sizes, with points planted exactly on the threshold and a
-    lane without a good point."""
+    """Counts equal to the plain version's at the fleet's shapes (16 and 2
+    lanes x 256 hypotheses x 1,024 points), at a full keyframe (4,096
+    points) and at ragged sizes, with points planted exactly on the
+    threshold and a lane without a good point; on rows 4 bytes off 16-byte
+    alignment; at other geometries (other block sizes and hypothesis
+    groups, one chunk and several)."""
     kernels.reset_launch_counts()
-    shapes = ((16, 256, 1024), (16, 256, 4096), (3, 37, 1000), (2, 1, 1))
-    for B, H, N in shapes:
+    launches = 0
+    for B, H, N in K6_CUDA_SHAPES:
         src, matched, good, R, t, thr2 = ransac_inputs(B + H + N, B, H, N)
         args = [torch.from_numpy(x).to(cuda_device) for x in (src, matched, good, R, t)]
         counts = kernels.ransac_counts_batched(*args, thr2)
         ref = kernels.ransac_counts_batched_plain(*args, thr2)
         torch.cuda.synchronize()
         assert torch.equal(counts, ref)
+        off = [offset_rows(x, cuda_device) for x in (src, matched, good)] + args[3:]
+        assert torch.equal(kernels.ransac_counts_batched(*off, thr2), ref)
+        launches += 2
         if B > 1:
             assert (counts[1] == 0).all()
         if N >= 4:
@@ -376,7 +429,22 @@ def test_k6_cuda_kernel_matches_plain(cuda_device):
                 args[3][:1, :1].contiguous(), args[4][:1, :1].contiguous(), thr2,
             )
             assert int(half[0, 0]) == int(good[0, q : 2 * q].sum()) > 0
-    assert kernels.LAUNCHES["ransac_counts_batched"] == 2 * len(shapes) - 1
+            launches += 1
+    for B, H, N in ((2, 256, 1024), (2, 67, 1001)):
+        src, matched, good, R, t, thr2 = ransac_inputs(B + H + N, B, H, N)
+        args = [torch.from_numpy(x).to(cuda_device) for x in (src, matched, good, R, t)]
+        ref = kernels.ransac_counts_batched_plain(*args, thr2)
+        # (threads, blocks aimed for, most hypotheses a block): more
+        # chunks (atomics), other groups, one block a lane (plain stores)
+        splits = [(threads, 264, hyps) for threads in (64, 128) for hyps in (5, 64)]
+        splits.append((512, 1, 256))
+        for split in splits:
+            g = kernels.k6_geometry(B, H, N, split)
+            counts = kernels._launch_ransac_counts(*args, thr2, geom=g)
+            torch.cuda.synchronize()
+            assert torch.equal(counts, ref), g
+        launches += len(splits)
+    assert kernels.LAUNCHES["ransac_counts_batched"] == launches
 
 
 @pytest.mark.cuda
