@@ -128,18 +128,42 @@ Phases (any failure raises, and the script exits non-zero):
    printed beside the default's; the fused run also on the CPU (the same
    checks against the card's); then the fleet bench's RANSAC under
    ``NN_INDEX`` (K7) must equal the argmin run and the default's attempts
-   and successes.
+   and successes;
+23. the LiDAR simulator (``io/lidar_sim.py``) at the anchor's 1,024
+   azimuths on the card against the CPU at 3 of its poses with the same
+   injected noise: no ray's valid flag flipped, the points within 1e-4 m;
+   ms a scan;
+24. the quality anchor (``bench_quality.run_session``) at full width and
+   depth on the card: 1,224 keyframes of the urban proxy world in 6 x 32
+   replay chunks with a drain after each and eviction at capacity 1,024,
+   held to ``tests/golden/quality_ate.json`` (ATE <= 3.272 m, ratio <=
+   0.9) with keyframes evicted; its K1 and K2 launches, then K1 at the two
+   shapes it launched most and K2 on 32 of its scans against their plain
+   versions, alone and 20 to a graph, with their bounds;
+25. the quick anchor session's first 64 frames on the CPU and on the card
+   on the same scans: the same loop decisions and matched indices, the
+   descriptors within 1e-4, the trajectories within 1e-4 m;
+26. phase 6's revisit world under ``storage_downsample="voxel_hash"`` (the
+   hash path), ``"voxel"`` and ``use_pcm=True``, each on the CPU and the
+   card and then drained: the same decisions, queue and drained edges;
+   ``pcm_filter`` on a 256-slot queue with planted outliers: the same
+   accept mask; ``chain_solve`` on a 2-lap circle with loops: card against
+   CPU within 1e-3 m, its ms beside one ``solver.solve`` of the graph;
+27. ``run_multi --robots 4 --config configs/four_robot_cityscale.yaml``
+   (PCM on, the configuration's widths) on the card for
+   ``CITYSCALE_FRAMES`` frames: it must exit 0; prints the inter loops,
+   the loops PCM rejected and the wall.
 
 Kernel times are CUDA events around replays of a CUDA graph of the call
 (device time without the host's launch cost), beside the eager call's
-time and, for K2 and K6, 20 calls to a graph (without the host's replay
+time and, for K1, K2 and K6, 20 calls to a graph (without the host's replay
 between launches, which a launch of a few microseconds does not hide);
 each kernel's bound is the larger of its bytes over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (the H100 SXM data sheet at 700 W),
 counted from this run's shapes (9 operations a query-target pair for K1,
 K3, K4, K5, K7 and K8, 27 a hypothesis-point pair for K6, 13 bytes a
 point for K2). The line before the last is a JSON object
-with one entry per kernel (K2's and K6's also with ``graph20_ms``, the
+with one entry per kernel (K1's, K2's and K6's also with ``graph20_ms``, the
 time a launch of 20 to a graph, since their ``ms`` at the one-frame
 shapes reads the launch floor); the last line is ``{"ok": true,
 "device": {...}}``. This script imports nothing of JAX.
@@ -427,45 +451,56 @@ def k1_inputs(torch, B, nq, nt, seed):
     )
 
 
+def k1_case(torch, kernels, B, nq, nt, seed) -> dict:
+    """K1 on k1_inputs at [B, nq, nt] against its plain version (d2
+    bit-equal, the inactive lane unwritten, the planted ties found, the
+    selection within the tie tolerance; or raise), and its times: by graph
+    replays alone and 20 to a graph, the eager call's and the plain
+    version's; with its bound."""
+    q, payload, active = args = k1_inputs(torch, B, nq, nt, seed)
+    d, sel = kernels.nn_select_batched(*args)
+    d_p, sel_p = kernels.nn_select_batched_plain(*args)
+    torch.cuda.synchronize()
+    what = f"K1 {B}x{nq}x{nt}"
+    if not torch.equal(d, d_p):
+        raise AssertionError(f"{what}: d2 differs from the plain version in "
+                             f"{(d != d_p).sum().item()} places")
+    if not (torch.isinf(d[3]).all() and (sel[3] == 0).all()):
+        raise AssertionError(f"{what}: an inactive lane was written")
+    if not (d[2, : min(nt // 3, nq)] == 1.0).all():
+        raise AssertionError(f"{what}: planted ties not found")
+    scale = payload[:, :3][payload[:, :3] < 1e5].abs().max().item()
+    tol = TIE_ULPS * 2.0 ** (np.floor(np.log2(scale)) - 23)
+    err = (sel - sel_p).abs().max().item()
+    if err > tol:
+        raise AssertionError(f"{what}: sel differs by {err} > {tol}")
+    # 9 FP32 operations per (query, target) pair of an active lane:
+    # 3 subtracts, 3 multiplies, 2 adds, 1 compare
+    n_active = int(active.sum().item())
+    bound_ms, bound_by = bound(
+        4 * (B * nq * 3 + B * 4 * nt + B + B * nq + B * 4 * nq), 9 * n_active * nq * nt
+    )
+    return {"max_abs_err": err, "tol": tol, "n_diff": (sel != sel_p).sum().item(),
+            "n_active": n_active,
+            "call_ms": time_cuda(torch, lambda: kernels.nn_select_batched(*args), reps=20),
+            "ms": time_graph(torch, lambda: kernels.nn_select_batched(*args), reps=20),
+            "many_ms": time_graph_many(torch, lambda: kernels.nn_select_batched(*args)),
+            "plain_ms": time_graph(torch, lambda: kernels.nn_select_batched_plain(*args), reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def phase_k1(torch, kernels) -> dict:
     res = {}
     for B, nq, nt, label in ((32, 1024, 8192, "full"), (32, 256, 2048, "coarse")):
-        q, payload, active = k1_inputs(torch, B, nq, nt, seed=nq)
-        d, sel = kernels.nn_select_batched(q, payload, active)
-        d_p, sel_p = kernels.nn_select_batched_plain(q, payload, active)
-        torch.cuda.synchronize()
-        if not torch.equal(d, d_p):
-            bad = (d != d_p).sum().item()
-            raise AssertionError(f"K1 {label}: d2 differs from the plain version in {bad} places")
-        if not (torch.isinf(d[3]).all() and (sel[3] == 0).all()):
-            raise AssertionError(f"K1 {label}: an inactive lane was written")
-        if not (d[2, : min(nt // 3, nq)] == 1.0).all():
-            raise AssertionError(f"K1 {label}: planted ties not found")
-        scale = payload[:, :3][payload[:, :3] < 1e5].abs().max().item()
-        tol = TIE_ULPS * 2.0 ** (np.floor(np.log2(scale)) - 23)
-        err = (sel - sel_p).abs().max().item()
-        n_diff = (sel != sel_p).sum().item()
-        if err > tol:
-            raise AssertionError(f"K1 {label}: sel differs by {err} > {tol}")
-        args = (q, payload, active)
-        call_ms = time_cuda(torch, lambda: kernels.nn_select_batched(*args), reps=20)
-        ms = time_graph(torch, lambda: kernels.nn_select_batched(*args), reps=20)
-        plain_ms = time_graph(torch, lambda: kernels.nn_select_batched_plain(*args), reps=5)
-        # 9 FP32 operations per (query, target) pair of an active lane:
-        # 3 subtracts, 3 multiplies, 2 adds, 1 compare
-        n_active = int(active.sum().item())
-        bound_ms, bound_by = bound(
-            4 * (B * nq * 3 + B * 4 * nt + B + B * nq + B * 4 * nq), 9 * n_active * nq * nt
-        )
-        log(f"[3] K1 {label} {B}x{nq}x{nt}: d2 bit-equal, sel max|diff| {err:.3g} "
-            f"(tol {tol:.3g}, {n_diff} elements differ), kernel {ms:.4f} ms "
-            f"(eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+        r = k1_case(torch, kernels, B, nq, nt, seed=nq)
+        log(f"[3] K1 {label} {B}x{nq}x{nt}: d2 bit-equal, sel max|diff| {r['max_abs_err']:.3g} "
+            f"(tol {r['tol']:.3g}, {r['n_diff']} elements differ), kernel {r['ms']:.4f} ms "
+            f"(20 to a graph {r['many_ms']:.4f} ms, eager call {r['call_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         log(f"[3]   K1 {label} geometry: "
-            f"{split_geometry(torch, kernels.k1_geometry(B, nq, nt), B, n_active)}; "
-            f"{versus_row('K1-mineq ' + label, ms, bound_ms)}")
-        res[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by}
+            f"{split_geometry(torch, kernels.k1_geometry(B, nq, nt), B, r['n_active'])}; "
+            f"{versus_row('K1-mineq ' + label, r['ms'], r['bound_ms'])}")
+        res[label] = r
     return res
 
 
@@ -542,6 +577,16 @@ def k2_case(torch, kernels, args, full: bool = True) -> dict:
     return res
 
 
+def k2_bound(args) -> tuple[float, str]:
+    """K2's bound on ``args`` from what this data needs: the 1-byte valid
+    flag of every row, the value, ring and sector (12 bytes) of a valid row
+    only (a padded row's are never used), the image written once; a
+    compare and a max a valid row."""
+    z, ring, sector, valid, R, S = args
+    n_valid = int(valid.sum())
+    return bound(valid.numel() + 12 * n_valid + z.shape[0] * R * S * 4, 2 * n_valid)
+
+
 def launch_floor(torch) -> tuple[float, float]:
     """ms of a timed launch that does nothing, a one-element add, replayed
     as a CUDA graph as the kernels are timed: alone and 20 to a graph."""
@@ -561,9 +606,7 @@ def phase_k2(torch, kernels) -> dict:
         res = k2_case(torch, kernels, args)
         g = kernels.k2_geometry(B, n)
         vec = kernels._vector_ok(n, args[:3], args[3:4])
-        # bytes: 13 a point (value, ring, sector, valid) read once, the image
-        # written once; operations: a compare and a max a point
-        bound_ms, bound_by = bound(B * n * (4 + 4 + 4 + 1) + B * 20 * 60 * 4, 2 * B * n)
+        bound_ms, bound_by = k2_bound(args)
         res.update(bound_ms=bound_ms, bound_by=bound_by)
         row = ROW_MS.get(f"K2 {label}")
         before = (f"row before the redesign {row:.4f} ms, now {row / res['ms']:.2f}x as fast"
@@ -1812,6 +1855,8 @@ SWITCH_CONFIGS = (
 
 def rot(w):
     th = np.linalg.norm(w)
+    if th == 0:
+        return np.eye(3)
     k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
     return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
 
@@ -2242,6 +2287,460 @@ def phase_switch_decisions(torch, kernels) -> None:
         f"{la['nn_index_batched']}, K1 0")
 
 
+# ---------------------------------------------------------------------------
+# the quality anchor's slice (phases 23-27)
+# ---------------------------------------------------------------------------
+
+# the simulator on the card against the CPU: rays whose valid flag may
+# differ (the direction table is built on the host for both, so none), and
+# the coordinates' tolerance (the world-frame rotation is a cuBLAS matmul)
+SIM_FLIPPED_RAYS = 0
+SIM_ATOL = 1e-4
+# phase 27's depth: frames of run_multi's synthetic sequence (its default,
+# not cut: ~43 s on an H100)
+CITYSCALE_FRAMES = 120
+
+
+def anchor_world(n_azimuth: int, device):
+    """The anchor's world: (scene, simulator on ``device``, lap poses)."""
+    from scl_slam_tpu_torch import bench_quality as bq
+    from scl_slam_tpu_torch.io import lidar_sim
+
+    scene = lidar_sim.UrbanScene(seed=7, blocks=1, block_size=40.0)
+    return scene, lidar_sim.LidarSim(scene, n_azimuth, device), bq.build_gt(scene, bq.LAPS)
+
+
+def phase_sim(torch) -> None:
+    """Phase 23: the simulator on the card against the CPU."""
+    from scl_slam_tpu_torch.io import lidar_sim
+
+    scene, card, gt = anchor_world(1024, "cuda")
+    cpu = lidar_sim.LidarSim(scene, 1024, "cpu")
+    flipped, err = 0, 0.0
+    for k in (0, 100, 200):
+        noise = torch.randn(card.points_per_scan, generator=torch.Generator().manual_seed(k))
+        xc, mc = lidar_sim._render(cpu.boxes, *cpu._pose(gt[k]), k, 1024, noise=noise)
+        xg, mg = lidar_sim._render(card.boxes, *card._pose(gt[k]), k, 1024, noise=noise.cuda())
+        xg, mg = xg.cpu(), mg.cpu()
+        flipped += int((mc != mg).sum())
+        both = mc & mg
+        err = max(err, float((xc[both] - xg[both]).abs().max()))
+    if flipped > SIM_FLIPPED_RAYS or err > SIM_ATOL:
+        raise AssertionError(f"simulator card vs cpu: {flipped} rays flipped, points {err} m apart")
+    for k in range(3):
+        card.scan_at(gt[k], seed=k)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for k in range(50):
+        card.scan_at(gt[k], seed=k)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t) / 50 * 1e3
+    t = time.perf_counter()
+    for k in range(3):
+        cpu.scan_at(gt[k], seed=k)
+    cpu_ms = (time.perf_counter() - t) / 3 * 1e3
+    log(f"[23] simulator at 1,024 azimuths (65,536 rays, {len(scene.boxes)} boxes), card against "
+        f"cpu at 3 anchor poses with the same noise: {flipped} rays flipped, points within "
+        f"{err:.2e} m; {card_ms:.2f} ms a scan on the card (render + copy to the host), "
+        f"{cpu_ms:.1f} ms on the cpu")
+
+
+def phase_anchor(torch, kernels) -> dict:
+    """Phase 24: the quality anchor at full width and depth through the
+    port's bench_quality.run_session, held to the golden gate; then K1 and
+    K2 against their plain versions at the shapes it launched them."""
+    from scl_slam_tpu_torch import bench_quality as bq
+    from scl_slam_tpu_torch.ops import pointcloud as pc
+
+    scene, sim, gt = anchor_world(1024, "cuda")
+    odom = bq.drift_odometry(gt)
+    cfg = bq.quality_config(False)
+    shapes: dict = {}
+
+    def recording(name):
+        def wrap(fn):
+            def call(*a, **k):
+                key = (name,) + tuple(a[0].shape[:2]) + (a[1].shape[-1],)
+                shapes[key] = shapes.get(key, 0) + 1
+                return fn(*a, **k)
+            return call
+        return wrap
+
+    # the session's layers, each timed alone (a synchronize before and after)
+    from scl_slam_tpu_torch.runtime import mapper as M
+
+    acc: dict = {}
+    scan = timing(torch, acc, "render (LidarSim.scan_at)")(lambda k: sim.scan_at(gt[k], seed=k))
+    undos = [patched(kernels, "nn_select_batched", recording("K1")),
+             patched(kernels, "max_image", recording("K2")),
+             patched(M.Mapper, "_compact", timing(torch, acc, "eviction (Mapper._compact)")),
+             patched(M, "_replay_batches", timing(torch, acc, "replay chunk (_replay_batches)")),
+             patched(M.Mapper, "add_frames", timing(torch, acc, "last 72 (add_frames, with its eviction)")),
+             patched(M, "_drain_queue_and_optimize", timing(torch, acc, "drain + solve"))]
+    try:
+        kernels.reset_launch_counts()
+        rec, m, _ = bq.run_session(cfg, gt, odom, scan, "cuda", 32, 6)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for u in reversed(undos):
+            u()
+    with open(bq.GOLDEN) as f:
+        rc = bq.gate(rec, json.load(f))
+    log(f"[24] quality anchor -> {json.dumps(rec)}")
+    log(f"[24] launches {launches}; shapes (kernel, lanes, queries or points, targets): "
+        f"{ {str(k): v for k, v in sorted(shapes.items())} }")
+    if rc != 0 or rec["keyframes"] != len(gt) or rec["evicted"] < 1:
+        raise AssertionError(f"the anchor missed its golden gate or its depth: {rec}")
+    if launches["nn_select_batched"] < 1 or launches["max_image"] < 1:
+        raise AssertionError(f"the anchor did not go through K1 and K2: {launches}")
+    log(f"[24] ATE {rec['value']:.4f} m (dead reckoning {rec['ate_odom_m']:.4f} m, ratio "
+        f"{rec['ratio']:.4f}; bounds 3.272 m, 0.9), {rec['keyframes']} keyframes, {rec['evicted']} "
+        f"evicted, {rec['loops']} loops, wall {rec['wall_s']:.2f} s; K1 launches "
+        f"{launches['nn_select_batched']}, K2 {launches['max_image']}")
+    log("[24] the session's layers, each timed alone (calls, total ms, share of the wall):")
+    for name, vals in sorted(acc.items(), key=lambda kv: -sum(kv[1])):
+        log(f"[24]   {name:34s} {len(vals):5d} calls {sum(vals):10.1f} ms "
+            f"{100 * sum(vals) / (1e3 * rec['wall_s']):5.1f}%")
+
+    res = {"launches": launches, "record": rec}
+    # K1 at its two most launched shapes (the fine and coarse ICP stages of
+    # a 32-frame batch)
+    top = sorted((k for k in shapes if k[0] == "K1"), key=lambda k: -shapes[k])[:2]
+    for _, B, nq, nt in top:
+        r = k1_case(torch, kernels, B, nq, nt, seed=nq + nt)
+        log(f"[24] K1 {B}x{nq}x{nt} ({shapes[('K1', B, nq, nt)]} launches in the anchor): d2 "
+            f"bit-equal, sel within {r['max_abs_err']:.3g} (tol {r['tol']:.3g}), kernel {r['ms']:.4f} ms (20 to a graph "
+            f"{r['many_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
+        res[f"K1 {B}x{nq}x{nt}"] = r
+    # K2 on 32 of the anchor's own scans, padded to its raw capacity
+    n = cfg.keyframe.raw_points_capacity
+    xyz = np.full((32, n, 3), pc.PAD_VALUE, np.float32)
+    mask = np.zeros((32, n), bool)
+    for b in range(32):
+        s = sim.scan_at(gt[6 * b], seed=6 * b)
+        xyz[b, : len(s)], mask[b, : len(s)] = s, True
+    xyz, mask = torch.from_numpy(xyz).cuda(), torch.from_numpy(mask).cuda()
+    ring, sector, valid = pc.polar_bins(xyz, mask, 20, 60, 80.0)
+    args = ((xyz[..., 2] + cfg.scan_context.lidar_height).contiguous(), ring.contiguous(),
+            sector.contiguous(), valid.contiguous(), 20, 60)
+    r = k2_case(torch, kernels, args)
+    r.update(zip(("bound_ms", "bound_by"), k2_bound(args)))
+    r["valid_rows"] = int(args[3].sum())
+    log(f"[24] K2 32x{n} (the anchor's scans, {r['valid_rows']} of {32 * n} rows valid; "
+        f"{shapes.get(('K2', 32, n, n), 0)} launches): "
+        f"bit-equal, kernel {r['ms']:.4f} ms (20 to a graph {r['many_ms']:.4f} ms), plain "
+        f"{r['plain_ms']:.4f} ms, scatter_reduce_ {r['library_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
+    res["K2"] = r
+    return res
+
+
+def phase_anchor_cross(torch) -> None:
+    """Phase 25: the anchor's first two 6 x 32 chunks (384 frames, past its
+    first revisit) at its widths, on the CPU (plain versions) and on the
+    card, on the same scans rendered once on the card; the capacity is cut
+    to 256 so that the second chunk also evicts. Stated tolerances: every
+    frame's Scan Context candidate (found, matched index) equal and the
+    descriptors within 1e-4 (f32 atan2 and sums); the same non-empty set of
+    loops and the same evicted frames. The witness: the card's last drain
+    and solve, repeated on the CPU from the card's own state, lands within
+    1e-3 m of the card's (the f32 solves of one graph on two devices); the
+    two runs' loop measurements differ where their ICP took another path
+    (it does not converge in 30 iterations), and the trajectories are held
+    within 1e-2 m."""
+    from scl_slam_tpu_torch import bench_quality as bq
+    from scl_slam_tpu_torch.runtime import mapper as M
+    from scl_slam_tpu_torch.runtime.state import state_from_numpy, state_to_numpy
+
+    scene, sim, gt = anchor_world(1024, "cuda")
+    n = 384
+    scans = [sim.scan_at(gt[k], seed=k) for k in range(n)]
+    odom = bq.drift_odometry(gt[:n])
+    cfg = bq.quality_config(False, max_keyframes=256)
+    out, drained = {}, []
+    for device in ("cpu", "cuda"):
+        frames: list = []
+
+        def keep(fn):
+            def call(*a, **k):
+                res = fn(*a, **k)
+                frames.append([x.cpu().numpy() for x in res[1:]])
+                return res
+            return call
+
+        def keep_input(fn):
+            def call(state, cfg_):
+                if state.opt_t.is_cuda:
+                    drained.append(state_to_numpy(state))
+                return fn(state, cfg_)
+            return call
+
+        undos = [patched(M, "_replay_batches", keep),
+                 patched(M, "_drain_queue_and_optimize", keep_input)]
+        t = time.perf_counter()
+        try:
+            rec, m, loops = bq.run_session(cfg, gt, odom, lambda k: scans[k], device, 32, 6,
+                                           n_frames=n)
+        finally:
+            for u in reversed(undos):
+                u()
+        ok, idx, fit = (np.concatenate([f[i] for f in frames]) for i in range(3))
+        out[device] = (rec, m, ok, idx, fit, time.perf_counter() - t)
+    (rc, mc, okc, idxc, fitc, sc), (rg, mg, okg, idxg, fitg, sg) = out["cpu"], out["cuda"]
+    att = (idxc >= 0) & np.isfinite(fitc) & np.isfinite(fitg)
+    moved = att & (np.abs(fitc - fitg) > 1e-3 * np.minimum(fitc, fitg))
+    log(f"[25] anchor prefix, {n} frames (6 x 32 chunks, capacity 256): {int(att.sum())} frames "
+        f"attempted a loop; per attempted frame (frame, candidate, cpu fitness, cuda fitness): "
+        f"{[(int(k), int(idxc[k]), round(float(fitc[k]), 6), round(float(fitg[k]), 6)) for k in np.flatnonzero(att)]}")
+    if not np.array_equal(idxc, idxg) or not np.array_equal(okc, okg) or not okc.any():
+        flips = np.flatnonzero(okc != okg)
+        raise AssertionError(f"anchor prefix: candidates or loop decisions differ between cpu and "
+                             f"cuda (decisions differ at frames {flips.tolist()}), or no loop closed")
+    dd = float((mc.state.desc_db.descriptors - mg.state.desc_db.descriptors.cpu()).abs().max())
+    ev_c = {r: [e["index"] for e in v] for r, v in mc._evicted.items()}
+    ev_g = {r: [e["index"] for e in v] for r, v in mg._evicted.items()}
+    # the witness: the card's last drain and solve again on the CPU
+    solved, _ = M._drain_queue_and_optimize(state_from_numpy(drained[-1], "cpu"), cfg)
+    dsolve = float((solved.opt_t - mg.state.opt_t.cpu()).abs().max())
+    gc, gg = mc.state.graph, mg.state.graph
+    E = int(gc.num_edges)
+    dz_t = float((gc.z.t[:E] - gg.z.t[:E].cpu()).abs().max())
+    dz_R = float((gc.z.R[:E] - gg.z.R[:E].cpu()).abs().max())
+    (ec, tc), (eg, tg) = mc.full_trajectory(), mg.full_trajectory()
+    dt = float(np.abs(ec - eg).max())
+    log(f"[25] anchor prefix: {len(drained)} drains on the card; its last drain and solve again "
+        f"on the cpu within {dsolve:.2e} m; the {E} factors' measurements within {dz_t:.2e} m and "
+        f"{dz_R:.2e} (rotation entries) between the runs; trajectories within {dt:.2e} m")
+    if (dd > 1e-4 or ev_c != ev_g or rc["evicted"] < 1 or int(gg.num_edges) != E
+            or not np.array_equal(gc.i[:E].numpy(), gg.i[:E].cpu().numpy())
+            or not np.array_equal(gc.j[:E].numpy(), gg.j[:E].cpu().numpy())
+            or not np.array_equal(tc, tg) or dsolve > 1e-3 or dt > 1e-2):
+        raise AssertionError(f"anchor prefix: descriptors {dd}, evicted {rc['evicted']} / "
+                             f"{rg['evicted']}, the solve {dsolve} m, trajectories {dt} m apart")
+    log(f"[25] anchor prefix: {int(okc.sum())} loops on both, every candidate and decision equal "
+        f"({int(moved.sum())} attempted frames whose fitness moved by more than 1e-3 relative, "
+        f"the largest {float(np.abs(fitc - fitg)[att].max()):.3g}); {rc['evicted']} evicted on "
+        f"both; descriptors within {dd:.2e}; ATE cpu {rc['value']:.4f} m, cuda "
+        f"{rg['value']:.4f} m; cpu {sc:.1f} s, cuda {sg:.2f} s")
+
+
+def pcm_queue(torch, device, M=256, good=40, bad=12):
+    """A loop queue of M slots: ``good`` consistent loops between two
+    robots' frames, ``bad`` gross outliers, the rest invalid. Returns the
+    pcm_filter arguments on ``device``."""
+    from scl_slam_tpu_torch.geometry import se3
+
+    rng = np.random.RandomState(0)
+    R_ab, t_ab = rot(np.array([0.0, 0.0, 0.4])), np.array([5.0, -2.0, 0.3])
+    ai = [(rot(np.array([0, 0, 0.05 * k])), np.array([1.5 * k, 0.2 * k, 0])) for k in range(M)]
+    bj = [(R_ab @ R, R_ab @ t + t_ab) for R, t in ai]
+    z = []
+    for k, ((Ra, ta), (Rb, tb)) in enumerate(zip(ai, bj)):
+        s_rot, s_t = (0.002, 0.02) if k < good else (0.5, 10.0)
+        z.append((Ra.T @ Rb @ rot(rng.normal(0, s_rot, 3)),
+                  Ra.T @ Rb @ rng.normal(0, s_t, 3) + Ra.T @ (tb - ta)))
+
+    def poses(ps):
+        return se3.Pose(torch.tensor(np.stack([p[0] for p in ps]), dtype=torch.float32, device=device),
+                        torch.tensor(np.stack([p[1] for p in ps]), dtype=torch.float32, device=device))
+
+    return [poses(ps) for ps in (ai, bj, z)] + [torch.from_numpy(np.arange(M) < good + bad).to(device)]
+
+
+def circle_graph(torch, device, n=512, laps=2, n_loops=16):
+    """A pose graph of ``laps`` laps of a 40 m circle with noisy odometry
+    (a prior on pose 0) and ``n_loops`` loop factors from the later laps to
+    the first; returns (graph, dead-reckoned poses) on ``device``."""
+    from scl_slam_tpu_torch.geometry import se3
+    from scl_slam_tpu_torch.graph import factors as F
+
+    rng = np.random.RandomState(2)
+    per = n // laps
+    gt = []
+    for k in range(n):
+        a = 2 * np.pi * k / per
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = rot(np.array([0, 0, a + np.pi / 2])), [40 * np.cos(a), 40 * np.sin(a), 0]
+        gt.append(T)
+    g = F.make_graph(2 * n, device=device)
+    F.add_prior(g, 0, se3.Pose(torch.tensor(gt[0][:3, :3], dtype=torch.float32, device=device),
+                               torch.tensor(gt[0][:3, 3], dtype=torch.float32, device=device)),
+                [1e3] * 6)
+    Z, ii, jj, si = [], [], [], []
+    for k in range(n - 1):
+        noise = np.eye(4)
+        noise[:3, :3], noise[:3, 3] = rot(rng.normal(0, 0.002, 3)), rng.normal(0, 0.02, 3)
+        Z.append(np.linalg.inv(gt[k]) @ gt[k + 1] @ noise)
+        ii.append(k), jj.append(k + 1), si.append([500.0] * 3 + [50.0] * 3)
+    for a in np.linspace(0, per - 1, n_loops).astype(int):
+        b = a + per * int(rng.randint(1, laps))
+        Z.append(np.linalg.inv(gt[a]) @ gt[b])
+        ii.append(int(a)), jj.append(int(b)), si.append([100.0] * 6)
+    Z = np.stack(Z).astype(np.float32)
+    F.add_between_block(g, torch.tensor(ii, device=device), torch.tensor(jj, device=device),
+                        se3.Pose(torch.from_numpy(Z[:, :3, :3]).to(device),
+                                 torch.from_numpy(Z[:, :3, 3]).to(device)),
+                        torch.tensor(si, dtype=torch.float32, device=device))
+    X = [gt[0]]
+    for k in range(n - 1):
+        X.append(X[-1] @ Z[k])
+    X = np.stack(X).astype(np.float32)
+    return g, se3.Pose(torch.from_numpy(X[:, :3, :3]).to(device), torch.from_numpy(X[:, :3, 3]).to(device))
+
+
+def as_f64(g, poses):
+    """A factor graph and poses with their float tensors in f64."""
+    from scl_slam_tpu_torch.geometry import se3
+
+    def p64(q):
+        return se3.Pose(q.R.double(), q.t.double())
+
+    return g._replace(z=p64(g.z), sqrt_info=g.sqrt_info.double(), prior_z=p64(g.prior_z),
+                      prior_sqrt_info=g.prior_sqrt_info.double()), p64(poses)
+
+
+def phase_modes_cross(torch) -> None:
+    """Phase 26: the storage modes and PCM, CPU against card."""
+    import dataclasses
+
+    from scl_slam_tpu_torch.graph import chain_solver, pcm, solver
+
+    T, scans = revisit_world(64, 16384)
+    world = (T.astype(np.float32), scans)
+    base = revisit_cfg()
+    for what, kf, opt in (
+        ("storage_downsample='voxel_hash' (16,384 raw points: the hash path)",
+         {"storage_downsample": "voxel_hash"}, {}),
+        ("storage_downsample='voxel'", {"storage_downsample": "voxel"}, {}),
+        ("use_pcm=True", {}, {"use_pcm": True}),
+    ):
+        cfg = dataclasses.replace(base, keyframe=dataclasses.replace(base.keyframe, **kf),
+                                  optimizer=dataclasses.replace(base.optimizer, **opt))
+        runs = {}
+        for device in ("cpu", "cuda"):
+            m, out, secs = revisit_replay(torch, cfg, device, world)
+            nq = int(m.state.loop_queue.count)
+            q = {k: getattr(m.state.loop_queue, k)[:nq].cpu().numpy() for k in ("i", "j")}
+            m.optimize()
+            g = m.state.graph
+            E = int(g.num_edges)
+            runs[device] = ([x is not None for x in out["loops"]],
+                            [x["matched_index"] for x in out["loops"] if x], q,
+                            (E, g.i[:E].cpu().numpy(), g.j[:E].cpu().numpy()),
+                            m.state.opt_t.cpu().numpy(), secs)
+        c, d = runs["cpu"], runs["cuda"]
+        same = (c[0] == d[0] and c[1] == d[1] and all(np.array_equal(c[2][k], d[2][k]) for k in "ij")
+                and c[3][0] == d[3][0] and np.array_equal(c[3][1], d[3][1])
+                and np.array_equal(c[3][2], d[3][2]))
+        dopt = float(np.abs(c[4] - d[4]).max())
+        if not same or not any(c[0]) or dopt > 1e-3:
+            raise AssertionError(f"revisit under {what}: cpu and cuda differ (opt_t {dopt} m) "
+                                 f"or no loop closed")
+        log(f"[26] revisit 64 frames under {what}: {sum(c[0])} loops, the same decisions, matched "
+            f"indices, queue and drained edges ({c[3][0]}) on cpu ({c[5]:.1f} s) and cuda "
+            f"({d[5]:.2f} s); max |dopt_t| {dopt:.2e} m")
+
+    cpu_args, card_args = pcm_queue(torch, "cpu"), pcm_queue(torch, "cuda")
+    acc_c, acc_g = pcm.pcm_filter(*cpu_args).numpy(), pcm.pcm_filter(*card_args).cpu().numpy()
+    if not (np.array_equal(acc_c, acc_g) and acc_c[:40].all() and not acc_c[40:].any()):
+        raise AssertionError("pcm_filter: the accept masks differ or the outliers got in")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pcm.pcm_filter(*card_args)
+    torch.cuda.synchronize()
+    log(f"[26] pcm_filter on a 256-slot queue (40 consistent loops, 12 outliers): the same accept "
+        f"mask on cpu and cuda, every outlier rejected; {1e3 * (time.perf_counter() - t):.2f} ms "
+        f"on the card")
+
+    # the exact chain solver against one PCG solve of the same graph
+    res, res64 = {}, {}
+    for device in ("cpu", "cuda"):
+        g, init = circle_graph(torch, device)
+        res64[device] = chain_solver.chain_solve(*as_f64(g, init), gn_iters=6, loop_capacity=32)
+        r = chain_solver.chain_solve(g, init, gn_iters=6, loop_capacity=32)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            again = chain_solver.chain_solve(g, init, gn_iters=6, loop_capacity=32)
+            torch.cuda.synchronize()
+            chain_ms = (time.perf_counter() - t) * 1e3
+            solver.solve(g, init, gn_iters=6, cg_iters=64)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p = solver.solve(g, init, gn_iters=6, cg_iters=64)
+            torch.cuda.synchronize()
+            pcg_ms = (time.perf_counter() - t) * 1e3
+        res[device] = r
+    # the witness: the same solve in f64 on both devices, its whole chi2
+    # history within 1e-6 relative and its poses within 1e-5 m. Where it
+    # holds, the two devices run the same algorithm, and the f32 runs'
+    # gap in the steps between is the rounding of an ill-conditioned step
+    c64, g64 = res64["cpu"], res64["cuda"]
+    chi64_c, chi64_g = c64.chi2_history.numpy(), g64.chi2_history.cpu().numpy()
+    rel64 = float((np.abs(chi64_c - chi64_g) / chi64_c).max())
+    dt64 = float((c64.poses.t - g64.poses.t.cpu()).abs().max())
+    log(f"[26] chain_solve in f64: chi2 history cuda {', '.join(f'{x:.10g}' for x in chi64_g)}, "
+        f"cpu {', '.join(f'{x:.10g}' for x in chi64_c)}; within {rel64:.2e} relative, poses "
+        f"within {dt64:.2e} m")
+    if bool(c64.loop_overflow) or bool(g64.loop_overflow) or rel64 > 1e-6 or dt64 > 1e-5:
+        raise AssertionError(f"chain_solve f64: cpu and cuda chi2 {rel64} relative, poses "
+                             f"{dt64} m apart: a fault, not f32 rounding")
+    rc, rg = res["cpu"], res["cuda"]
+    dt = float((rc.poses.t - rg.poses.t.cpu()).abs().max())
+    chi_c, chi_g = rc.chi2_history.numpy(), rg.chi2_history.cpu().numpy()
+    d0, dlast = (float(abs(chi_c[i] - chi_g[i]) / chi_c[i]) for i in (0, -1))
+    # stated tolerances in f32: the port's f32 Gauss-Newton steps ~1e-3 m
+    # at the optimum (tests/test_torch_chain_solver.py), so the two devices
+    # agree to 1e-3 m and in the final chi2 to 5e-3; the first chi2 (the
+    # same inputs) to 1e-5. The f32 steps between are held by the f64
+    # witness above, not here
+    if (bool(rc.loop_overflow) or bool(rg.loop_overflow) or dt > 1e-3 or d0 > 1e-5
+            or dlast > 5e-3):
+        raise AssertionError(f"chain_solve: cpu and cuda {dt} m, first chi2 {d0}, last {dlast} apart")
+    log(f"[26] chain_solve on a 2-lap circle (512 poses, 16 loops, 6 GN steps) in f32: cpu and "
+        f"cuda within {dt:.2e} m, final chi2 within {dlast:.2e}; chi2 history cuda "
+        f"{', '.join(f'{x:.6g}' for x in chi_g)} (a second run: "
+        f"{', '.join(f'{x:.6g}' for x in again.chi2_history.cpu().numpy())}), cpu "
+        f"{', '.join(f'{x:.6g}' for x in chi_c)}; "
+        f"{chain_ms:.1f} ms on the card, one solver.solve of the same graph (6 x 64 PCG) "
+        f"{pcg_ms:.1f} ms (chi2 -> {float(p.chi2_history[-1]):.6g})")
+
+
+def phase_cityscale(torch, kernels, frames: int) -> None:
+    """Phase 27: run_multi --robots 4 with configs/four_robot_cityscale.yaml
+    on the card (PCM on), ``frames`` frames of the synthetic sequence."""
+    from scl_slam_tpu_torch.graph import pcm
+
+    rejected = [0, 0]
+
+    def counting(fn):
+        def filt(loops_i, loops_j, loops_z, valid, threshold=0.75):
+            acc = fn(loops_i, loops_j, loops_z, valid, threshold=threshold)
+            rejected[0] += int((valid & ~acc).sum())
+            rejected[1] += int(valid.sum())
+            return acc
+        return filt
+
+    undo = patched(pcm, "pcm_filter", counting)
+    try:
+        kernels.reset_launch_counts()
+        rc, rep = run_multi_report(["--robots", "4", "--config",
+                                    os.path.join(ROOT, "configs", "four_robot_cityscale.yaml"),
+                                    "--frames", str(frames), "--output",
+                                    os.path.join(ROOT, "chiprun_out", "run_multi_cityscale")])
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        undo()
+    log(f"[27] run_multi --robots 4 --config configs/four_robot_cityscale.yaml --frames {frames} "
+        f"-> {json.dumps(rep)}")
+    if rc != 0 or rep["device"] != torch.cuda.get_device_name(0) or launches["max_image"] < 1:
+        raise AssertionError(f"the city-scale run failed on the card (rc {rc}): {launches}")
+    log(f"[27] inter loops {rep['inter_loops']}, intra {rep['intra_loops']}; PCM rejected "
+        f"{rejected[0]} of {rejected[1]} ready loops over the drains; wall {rep['wall_s']} s; "
+        f"launches {launches}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "scl_slam_tpu_torch")):
         raise RuntimeError(
@@ -2276,6 +2775,11 @@ def main() -> int:
     switches = phase_replay_switches(torch, kernels, bench)
     del bench
     phase_switch_decisions(torch, kernels)
+    phase_sim(torch)
+    phase_anchor(torch, kernels)
+    phase_anchor_cross(torch)
+    phase_modes_cross(torch)
+    phase_cityscale(torch, kernels, CITYSCALE_FRAMES)
 
     def entry(name, source, replaces, n, res, library_ms=None):
         e = {"name": name, "route": "cuda", "source": f"scl_slam_tpu_torch/csrc/{source}",
@@ -2283,9 +2787,9 @@ def main() -> int:
              "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
              "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": library_ms}
         if "many_ms" in res:
-            # K2 and K6 at one-frame shapes: "ms" (one launch a graph
-            # replay) reads the launch floor; 20 launches to a graph read
-            # the device's time a launch
+            # K1, K2 and K6: "ms" (one launch a graph replay) reads the
+            # launch floor at K2's and K6's one-frame shapes; 20 launches
+            # to a graph read the device's time a launch
             e["graph20_ms"] = res["many_ms"]
         return e
 

@@ -19,7 +19,12 @@ batched RANSAC; ``run_multi --fleet``) with keyframe eviction
 ``ops/registration.py``). Every TPU kernel has its CUDA counterpart; the
 batched 1-NN (K1, K7, K8), the solo 1-NN (K4, K3) and the fused ICP
 moments (K5) run one kernel that splits the target axis across the card
-(``csrc/nn_split.cuh``). ``Mapper`` runs on the GPU unless
+(``csrc/nn_split.cuh``). The quality anchor (``python -m
+scl_slam_tpu_torch.bench_quality``) replays 1,224 keyframes of the LiDAR
+simulator's urban world (``io/lidar_sim.py``) against the JAX package's
+golden ATE bound; the voxel storage modes, PCM outlier rejection in the
+drain (``graph/pcm.py``) and the exact chain + loop solver
+(``graph/chain_solver.py``) are ported too. ``Mapper`` runs on the GPU unless
 it is given ``device="cpu"``. What is still to come is listed in
 ``ROADMAP.md``.
 """

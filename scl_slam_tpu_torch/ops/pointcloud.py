@@ -3,9 +3,9 @@
 
 Clouds are fixed-capacity ``[..., N, 3]`` tensors with a validity mask;
 every function here takes leading batch dimensions, which replaces the JAX
-package's ``vmap`` over frames, except ``voxel_downsample`` (one cloud; the
-global map's final downsample). ``voxel_downsample_hash`` and
-``estimate_normals`` are not ported yet (ROADMAP queue 1).
+package's ``vmap`` over frames, except ``voxel_downsample`` and
+``voxel_downsample_hash`` (one cloud each; the mapper walks the frames).
+``estimate_normals`` is not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -114,6 +114,70 @@ def voxel_downsample(cloud: Cloud, leaf: float, out_capacity: int | None = None)
     take = torch.argsort(sort_key, stable=True)[:out_capacity]
     new_mask = is_rep[take]
     return Cloud(torch.where(new_mask[:, None], xyz[take], PAD_VALUE), new_mask)
+
+
+def voxel_downsample_hash(
+    cloud: Cloud,
+    leaf: float,
+    out_capacity: int,
+    hash_slots: int = 1 << 15,
+    predecimate_factor: int = 4,
+) -> Cloud:
+    """Approximate voxel downsample of one cloud [N, 3] in one scatter pass
+    (no sort): each point scatter-mins a packed (15-bit quantized distance
+    to its voxel's center, 16-bit point index) word into a ``hash_slots``
+    table keyed by a voxel hash, and the occupied slots are compacted in
+    slot order by a cumsum. Distinct voxels that collide in the table merge
+    (one representative survives); the slot order keeps the property that a
+    prefix of the result is a uniform spatial subsample.
+
+    A cloud of more than 65,536 points (the index takes 16 bits) takes the
+    exact :func:`voxel_downsample`. A larger cloud than ``2 x
+    predecimate_factor x out_capacity`` is first cut by a static stride to
+    about ``predecimate_factor x out_capacity`` points. The hash's int32
+    products wrap in the JAX function; their low 32 bits are taken from
+    int64 products here, so both pick the same slot.
+    """
+    n = cloud.xyz.shape[0]
+    if n > 65536:
+        return voxel_downsample(cloud, leaf, out_capacity)
+    target = predecimate_factor * out_capacity
+    if predecimate_factor > 0 and n > 2 * target:
+        stride = n // target
+        cloud = Cloud(cloud.xyz[::stride], cloud.mask[::stride])
+        n = cloud.xyz.shape[0]
+    xyz, mask = cloud.xyz, cloud.mask
+    dev = xyz.device
+    inv_leaf = 1.0 / leaf
+    w = mask.to(xyz.dtype)
+    mean = torch.sum(xyz * w[:, None], dim=0) / torch.clamp(w.sum(), min=1.0)
+    origin = torch.floor(mean * inv_leaf) * leaf
+    vox = torch.floor((xyz - origin) * inv_leaf).to(torch.int64)
+    valid = (
+        mask
+        & (vox[:, 0].abs() < 1024) & (vox[:, 1].abs() < 1024) & (vox[:, 2].abs() < 128)
+    )
+    h = (
+        ((vox[:, 0] * 73856093) ^ (vox[:, 1] * 19349663) ^ (vox[:, 2] * 83492791)) & 0x7FFFFFFF
+    ) % hash_slots
+    center = (vox.to(xyz.dtype) + 0.5) * leaf + origin
+    d2 = torch.sum((xyz - center) ** 2, dim=-1)
+    # pack (15-bit quantized d2 | 16-bit index); d2 <= 3/4 leaf^2 in-voxel
+    q = torch.clamp(d2 * (32767.0 / (0.75 * leaf * leaf)), max=32767.0).to(torch.int64)
+    sentinel = 0x7FFFFFFF
+    packed = torch.where(valid, (q << 16) | torch.arange(n, device=dev), sentinel)
+    best = torch.full((hash_slots,), sentinel, dtype=torch.int64, device=dev).scatter_reduce(
+        0, h, packed, "amin"
+    )
+    occupied = best != sentinel
+    # compaction in slot order: rows past the capacity go to a scratch row
+    pos = torch.cumsum(occupied, 0) - 1
+    ok = occupied & (pos < out_capacity)
+    out_idx = torch.zeros(out_capacity + 1, dtype=torch.int64, device=dev)
+    out_idx[torch.where(ok, pos, out_capacity)] = best & 0xFFFF
+    out_idx = out_idx[:out_capacity]
+    out_mask = torch.arange(out_capacity, device=dev) < ok.sum()
+    return Cloud(torch.where(out_mask[:, None], xyz[out_idx], PAD_VALUE), out_mask)
 
 
 def stride_permute_downsample(cloud: Cloud, out_capacity: int) -> Cloud:

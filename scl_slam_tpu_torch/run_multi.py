@@ -29,7 +29,7 @@ clock). The last line of its output is the JSON report (``robots``,
 ``frames_per_s``, ``device``, ``output``, ``ate_rmse_m``; ``mode`` is
 ``decentralized``, ``decentralized-tcp`` or ``fleet``). Not ported yet, and
 refused with exit code 2: ``--respawn`` and ``--checkpoint-every`` (item
-13: the checkpoint module); the trajectory figure is left out (item 18).
+1: the checkpoint module); the trajectory figure is left out (item 7).
 """
 from __future__ import annotations
 
@@ -234,7 +234,7 @@ def _refuse(args) -> str | None:
                 "transport (drop --transport tcp)")
     if args.respawn or args.checkpoint_every:
         return ("--respawn and --checkpoint-every need the checkpoint module, "
-                "which is not ported yet (ROADMAP queue 1 item 13: "
+                "which is not ported yet (ROADMAP queue 1 item 1: "
                 "runtime/checkpoint.py)")
     return None
 

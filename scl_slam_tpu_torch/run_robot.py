@@ -19,7 +19,7 @@ The choreography runs on sentinel files in ``--workdir``:
   last solve and writes ``out_<r>``; robot 0's holds the joint ATE.
 
 ``--resume`` and ``--checkpoint-every`` need the checkpoint module, which
-is not ported yet: they exit 2 (ROADMAP queue 1 item 13).
+is not ported yet: they exit 2 (ROADMAP queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.resume or args.checkpoint_every:
         print("--resume and --checkpoint-every need the checkpoint module, which "
-              "is not ported yet (ROADMAP queue 1 item 13: runtime/checkpoint.py)",
+              "is not ported yet (ROADMAP queue 1 item 1: runtime/checkpoint.py)",
               file=sys.stderr)
         return 2
     require_device(args.device)

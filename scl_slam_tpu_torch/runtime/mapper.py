@@ -36,10 +36,15 @@ evicted and the block compacted (``runtime/eviction.py``, host numpy); the
 evicted poses are archived for ``full_trajectory``. The centralized fleet
 (``runtime/fleet.py``) shares every stage function here.
 
+The storage downsample is the stride permutation by default, or the voxel
+modes (``storage_downsample="voxel_hash"``/``"voxel"``); with ``use_pcm``
+the drain keeps only the largest pairwise-consistent set of the ready
+loops (``graph/pcm.py``).
+
 The state is updated in place (the JAX steps donate their state). What is
-not ported yet raises ``NotImplementedError`` naming the ROADMAP item it
-waits for: checkpoints, PCM, the mesh solve, the voxel storage modes, the
-C++ host-descriptor path and int16 transfer.
+not ported raises ``NotImplementedError``: the mesh solve names the ROADMAP
+item it waits for; the C++ host-descriptor path and int16 transfer are
+not carried.
 """
 from __future__ import annotations
 
@@ -102,17 +107,25 @@ def _prepare_frame(xyz: torch.Tensor, mask: torch.Tensor, cfg: SlamConfig):
 
 
 def _prepare_cloud(cloud: pc.Cloud, cfg: SlamConfig) -> pc.Cloud:
-    """Storage downsample (the ``"stride"`` mode, the default)."""
-    mode = cfg.keyframe.storage_downsample
-    if not cfg.keyframe.fast_voxel:
+    """Storage downsample of clouds [..., N, 3] to ``points_per_keyframe``:
+    ``"stride"`` (the default), ``"voxel_hash"`` or ``"voxel"`` (also
+    ``fast_voxel=False``) at ``descript_leaf_size``; the voxel modes take one
+    cloud at a time, so the frames are walked here (JAX vmaps them)."""
+    kf = cfg.keyframe
+    mode = kf.storage_downsample
+    if not kf.fast_voxel:
         mode = "voxel"  # back-compat alias
     if mode == "stride":
-        return pc.stride_permute_downsample(
-            cloud, cfg.keyframe.points_per_keyframe
-        )
-    raise NotImplementedError(
-        f"storage_downsample={mode!r} is not ported yet "
-        "(ROADMAP queue 1 item 12: voxel storage downsamplers)"
+        return pc.stride_permute_downsample(cloud, kf.points_per_keyframe)
+    down = pc.voxel_downsample_hash if mode == "voxel_hash" else pc.voxel_downsample
+    lead, n = cloud.xyz.shape[:-2], cloud.xyz.shape[-2]
+    outs = [
+        down(pc.Cloud(x, m), kf.descript_leaf_size, kf.points_per_keyframe)
+        for x, m in zip(cloud.xyz.reshape(-1, n, 3), cloud.mask.reshape(-1, n))
+    ]
+    return pc.Cloud(
+        torch.stack([o.xyz for o in outs]).reshape(*lead, -1, 3),
+        torch.stack([o.mask for o in outs]).reshape(*lead, -1),
     )
 
 
@@ -448,16 +461,13 @@ def _drain_queue(state: MapperState, cfg: SlamConfig):
     Loop factors get diagonal noise from the ICP fitness taken as a
     variance, times ``loop_noise_scale``; entries whose endpoints are not
     ingested yet stay queued (moved to the front, in order); entries whose
-    endpoints were evicted are dropped. The JAX ``fori_loop`` of masked
-    appends is one append in row order (an exclusive cumsum of the ready
-    rows), which gives the same edge rows. Returns (graph, n_new [0-d],
-    compacted queue).
+    endpoints were evicted are dropped. With ``use_pcm``, only the ready
+    loops in the largest pairwise-consistent set under the current
+    estimates are added (``graph/pcm.py``); a rejected loop leaves the
+    queue. The JAX ``fori_loop`` of masked appends is one append in row
+    order (an exclusive cumsum of the added rows), which gives the same
+    edge rows. Returns (graph, n_new [0-d], compacted queue).
     """
-    if cfg.optimizer.use_pcm:
-        raise NotImplementedError(
-            "use_pcm=True needs PCM outlier rejection, which is not ported "
-            "yet (ROADMAP queue 1 item 15: graph/pcm.py)"
-        )
     q = state.loop_queue
     Q = q.i.shape[0]
     in_queue = torch.arange(Q, device=q.i.device) < q.count
@@ -465,13 +475,24 @@ def _drain_queue(state: MapperState, cfg: SlamConfig):
     slots_j, pend_j = _resolve_indices(state, q.j)
     ready = in_queue & (slots_i >= 0) & (slots_j >= 0)
     deferred = in_queue & ~ready & (pend_i | pend_j)
+    qi_slot = torch.clamp(slots_i, min=0).long()
+    qj_slot = torch.clamp(slots_j, min=0).long()
+    added = ready
+    if cfg.optimizer.use_pcm:
+        from ..graph import pcm
+
+        added = ready & pcm.pcm_filter(
+            se3.Pose(state.opt_R[qi_slot], state.opt_t[qi_slot]),
+            se3.Pose(state.opt_R[qj_slot], state.opt_t[qj_slot]),
+            se3.Pose(q.z_R, q.z_t), ready, threshold=cfg.optimizer.pcm_threshold,
+        )
     var = torch.clamp(q.noise * cfg.optimizer.loop_noise_scale, min=1e-6)
     sq = 1.0 / torch.sqrt(var)
     graph = F.add_between_block(
-        state.graph, torch.clamp(slots_i, min=0), torch.clamp(slots_j, min=0),
-        se3.Pose(q.z_R, q.z_t), sq[:, None].expand(Q, 6), valid=ready,
+        state.graph, qi_slot, qj_slot,
+        se3.Pose(q.z_R, q.z_t), sq[:, None].expand(Q, 6), valid=added,
     )
-    n_new = ready.sum()
+    n_new = added.sum()
     # deferred entries first, in their order (a stable sort on ~deferred)
     order = torch.sort((~deferred).to(torch.int8), stable=True).indices
     new_queue = LoopQueue(
@@ -1112,7 +1133,7 @@ class Mapper:
     def attach_mesh(self, mesh, axis: str = "shard") -> None:
         raise NotImplementedError(
             "the mesh-attached distributed solve is not ported yet "
-            "(ROADMAP queue 1 item 17: distributed)"
+            "(ROADMAP queue 1 item 6: distributed)"
         )
 
     # -- inter-robot loop closure --

@@ -92,7 +92,7 @@ def main() -> int:
     for name, by_label in res.items():
         for label, r in by_label.items():
             out[f"{name} {label}"] = round(r["ms"], 4)
-            if "many_ms" in r:  # K2 and K6: also 20 launches to a graph
+            if "many_ms" in r:  # K1, K2 and K6: also 20 launches to a graph
                 out[f"{name} {label} 20"] = round(r["many_ms"], 4)
     for label, ms in re.findall(r"\[18\] K5 (\w+) .*?argmin kernel ([0-9.]+) ms",
                                 printed.getvalue()):

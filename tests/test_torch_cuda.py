@@ -545,3 +545,71 @@ def test_k5_cuda_kernel_matches_plain(cuda_device):
     m = kernels.icp_moments_batched(*args[:4], torch.zeros_like(args[4]), 3.0)
     assert (m == 0).all()
     assert kernels.LAUNCHES["icp_moments_batched"] == 2 * len(shapes) + 1
+
+
+@pytest.mark.cuda
+def test_lidar_sim_card_matches_cpu(cuda_device):
+    """The simulator on the card against the CPU at the quality anchor's
+    1,024 azimuths, the same noise injected: the masks equal (the direction
+    table is built on the host for both) and the points within 1e-4 m (the
+    world-frame rotation is a cuBLAS matmul on the card); the same for a
+    moving sweep."""
+    from scl_slam_tpu_torch.io import lidar_sim
+
+    scene = lidar_sim.UrbanScene(seed=7, blocks=1, block_size=40.0)
+    cpu = lidar_sim.LidarSim(scene, n_azimuth=1024, device="cpu")
+    card = lidar_sim.LidarSim(scene, n_azimuth=1024, device=cuda_device)
+    poses = scene.circuit(lane_offset=2.0)
+    for k in (3, 77, 150):
+        noise = np.random.RandomState(k).randn(cpu.points_per_scan).astype(np.float32)
+        a, b = cpu.scan_at(poses[k], noise=noise), card.scan_at(poses[k], noise=noise)
+        assert a.shape == b.shape and a.shape[0] > 50_000
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-4)
+        a = cpu.scan_at_skewed(poses[k], poses[k + 3], noise=noise)
+        b = card.scan_at_skewed(poses[k], poses[k + 3], noise=noise)
+        assert a.shape == b.shape
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_pcm_filter_card_matches_cpu(cuda_device):
+    """PCM on the card against the CPU: a queue of 256 loop slots (the
+    default queue capacity) with 40 consistent loops, 12 outliers and the
+    rest invalid; the consistency matrix within 1e-4 relative or 1e-5
+    absolute, ``inf`` in the same places, the accept masks equal; the
+    greedy clique equal on graphs with planted degree ties."""
+    from scl_slam_tpu_torch.geometry import se3
+    from scl_slam_tpu_torch.graph import pcm
+
+    rng = np.random.RandomState(0)
+    M, good, bad = 256, 40, 12
+    R_ab = _rodrigues(np.array([0.0, 0.0, 0.4]))
+    t_ab = np.array([5.0, -2.0, 0.3])
+    ai = [(_rodrigues(np.array([0, 0, 0.05 * k])), np.array([1.5 * k, 0.2 * k, 0])) for k in range(M)]
+    bj = [(R_ab @ R, R_ab @ t + t_ab) for R, t in ai]
+    z = []
+    for k, ((Ra, ta), (Rb, tb)) in enumerate(zip(ai, bj)):
+        Rz, tz = Ra.T @ Rb, Ra.T @ (tb - ta)
+        s_rot, s_t = (0.002, 0.02) if k < good else (0.5, 10.0)
+        z.append((Rz @ _rodrigues(rng.normal(0, s_rot, 3)), Rz @ rng.normal(0, s_t, 3) + tz))
+    valid = np.arange(M) < good + bad
+
+    def poses(ps, dev):
+        return se3.Pose(torch.tensor(np.stack([p[0] for p in ps]), dtype=torch.float32, device=dev),
+                        torch.tensor(np.stack([p[1] for p in ps]), dtype=torch.float32, device=dev))
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        args = [poses(ps, dev) for ps in (ai, bj, z)] + [torch.from_numpy(valid).to(dev)]
+        out[str(dev)] = (pcm.consistency_matrix(*args).cpu().numpy(),
+                         pcm.pcm_filter(*args).cpu().numpy())
+    (e_c, a_c), (e_g, a_g) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_array_equal(np.isinf(e_g), np.isinf(e_c))
+    fin = np.isfinite(e_c)
+    np.testing.assert_allclose(e_g[fin], e_c[fin], rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(a_g, a_c)
+    assert a_c[:good].all() and not a_c[good:].any()
+    for seed in range(4):
+        labels = np.random.RandomState(seed).permutation(np.arange(96) % (seed + 2))
+        adj = torch.from_numpy(labels[:, None] == labels[None, :])
+        assert torch.equal(pcm.greedy_max_clique(adj.to(cuda_device)).cpu(), pcm.greedy_max_clique(adj))

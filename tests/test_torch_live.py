@@ -214,11 +214,10 @@ def test_mapper_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             M.Mapper(cfg)
     assert M.Mapper(cfg, "cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 15"):  # PCM
-        M._drain_queue(
-            M.make_state(cfg, "cpu"),
-            tconfig.SlamConfig(optimizer=tconfig.OptimizerConfig(use_pcm=True)),
-        )
+    # PCM is ported: a drain with use_pcm runs (an empty queue adds nothing)
+    pcm_cfg = tconfig.SlamConfig(optimizer=tconfig.OptimizerConfig(use_pcm=True))
+    _, n_new, queue = M._drain_queue(M.make_state(pcm_cfg, "cpu"), pcm_cfg)
+    assert int(n_new) == 0 and int(queue.count) == 0
 
 
 def test_kitti_config_in_code_equals_yaml():

@@ -27,6 +27,7 @@ from scl_slam_tpu.runtime.mapper import Mapper as JMapper
 from scl_slam_tpu_torch import config as tconfig
 from scl_slam_tpu_torch.geometry import se3
 from scl_slam_tpu_torch.io import trajectory as tio
+from scl_slam_tpu_torch.ops import pointcloud as pc
 from scl_slam_tpu_torch.runtime import mapper as M
 from scl_slam_tpu_torch.runtime.state import state_from_numpy, state_to_numpy
 from test_torch_kernels import release_jax_programs  # noqa: F401 (autouse)
@@ -175,8 +176,11 @@ def test_gate_and_unported_paths_raise():
     assert int(m.state.loop_queue.count) == 0
     with pytest.raises(NotImplementedError):
         M.Mapper(tconfig.SlamConfig(descriptor_type=tconfig.DescriptorType.M2DP), "cpu")
-    with pytest.raises(NotImplementedError):
-        M._prepare_cloud(None, tconfig.SlamConfig(keyframe=tconfig.KeyframeConfig(storage_downsample="voxel")))
+    # the voxel storage modes are ported: they downsample to the storage width
+    vox_cfg = tconfig.SlamConfig(keyframe=tconfig.KeyframeConfig(
+        storage_downsample="voxel", points_per_keyframe=256, descript_leaf_size=0.5))
+    small = M._prepare_cloud(pc.from_points(torch.from_numpy(scans[0]), 1024), vox_cfg)
+    assert small.xyz.shape == (256, 3) and 0 < int(small.mask.sum()) <= 256
 
 
 def test_replay_that_overflows_the_queue_drains(workload):
