@@ -24,8 +24,11 @@ scl_slam_tpu_torch.bench_quality``) replays 1,224 keyframes of the LiDAR
 simulator's urban world (``io/lidar_sim.py``) against the JAX package's
 golden ATE bound; the voxel storage modes, PCM outlier rejection in the
 drain (``graph/pcm.py``) and the exact chain + loop solver
-(``graph/chain_solver.py``) are ported too. ``Mapper`` runs on the GPU unless
-it is given ``device="cpu"``. What is still to come is listed in
+(``graph/chain_solver.py``) are ported too, and so are checkpoint / resume
+(``runtime/checkpoint.py``, the JAX package's file layout; ``run_robot
+--resume``, ``run_multi --respawn``) and the serving daemon (``python -m
+scl_slam_tpu_torch.serve``, with ``io/export.py``). ``Mapper`` runs on the GPU
+unless it is given ``device="cpu"``. What is still to come is listed in
 ``ROADMAP.md``.
 """
 

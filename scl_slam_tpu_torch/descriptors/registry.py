@@ -2,7 +2,7 @@
 ``scl_slam_tpu/descriptors/registry.py``, Scan Context family only).
 
 The other families (LiDAR-Iris, M2DP, GRSD, FPFH, SHOT) wait for ROADMAP
-queue 1 item 3; asking for one raises ``NotImplementedError``.
+queue 1 item 2; asking for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -72,5 +72,5 @@ def get_family(cfg: SlamConfig) -> Family:
         )
     raise NotImplementedError(
         f"descriptor_type {kind.value!r} is not ported yet "
-        "(ROADMAP queue 1 item 3: other descriptor families)"
+        "(ROADMAP queue 1 item 2: other descriptor families)"
     )

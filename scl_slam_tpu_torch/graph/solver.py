@@ -2,13 +2,23 @@
 ``scl_slam_tpu/graph/solver.py``).
 
 Per-edge 6x6 Jacobian blocks are the closed form of what the JAX module
-takes by forward-mode autodiff at the current linearization point (the SE(3)
-right Jacobian inverse and an adjoint; held equal to JAX's ``jacfwd`` in
-``tests/test_torch_solver.py``): a handful of batched 6x6 products, where
-autodiff through the log and exp costs hundreds of small launches. The Gauss-Newton matrix is never formed: it is
-applied matrix-free with gathers and ``index_add_`` scatter-sums, and solved
-by preconditioned conjugate gradients (block-Jacobi 6x6 Cholesky, plus
-optional coarse levels). The iteration counts are fixed (the JAX ``scan``s
+takes by forward-mode autodiff of the f32 residual (``jacfwd``): the SE(3)
+right Jacobian inverse and an adjoint, a handful of batched 6x6 products
+where autodiff through the log and exp costs hundreds of small launches,
+times one map that carries the residual's f32 arccos (``_arccos_tangent``).
+That map matters: so3.log's angle is ``arccos(cos_t)``, which turns one
+rounding of ``cos_t`` into ~1e-5 rad near a 3e-3 rad optimum, and
+forward mode takes arccos's tangent at that same rounded ``cos_t``, which
+scales the Jacobian's axial row by the inverse factor, so the gradient
+J^T W r carries no such noise and f32 Gauss-Newton settles. The exact
+Jacobian alone leaves the noise in the gradient, and f32 Gauss-Newton
+kept stepping ~1e-3 m at its optimum (``tests/test_torch_chain_solver.py``
+holds both against the JAX module).
+
+The Gauss-Newton matrix is never formed: it is applied matrix-free with
+gathers and ``index_add_`` scatter-sums, and solved by preconditioned
+conjugate gradients (block-Jacobi 6x6 Cholesky, plus optional coarse
+levels). The iteration counts are fixed (the JAX ``scan``s
 are Python loops), so no step reads a value back to the host.
 
 The Jacobian blocks are kept as [E, 6, 6]; the JAX module transposes them to
@@ -34,16 +44,18 @@ class SolveResult(NamedTuple):
     delta_norms: torch.Tensor    # [gn_iters] update magnitudes
 
 
-def _edge_residual(xi_i, xi_j, Ti_R, Ti_t, Tj_R, Tj_t, z_R, z_t):
+def _edge_pose(xi_i, xi_j, Ti_R, Ti_t, Tj_R, Tj_t, z_R, z_t) -> se3.Pose:
+    """z^-1 (Ti exp(xi_i))^-1 (Tj exp(xi_j)): the pose whose log is the
+    edge residual."""
     Ti = se3.retract(se3.Pose(Ti_R, Ti_t), xi_i)
     Tj = se3.retract(se3.Pose(Tj_R, Tj_t), xi_j)
-    z = se3.Pose(z_R, z_t)
-    return se3.log(se3.compose(se3.inverse(z), se3.between(Ti, Tj)))
+    return se3.compose(se3.inverse(se3.Pose(z_R, z_t)), se3.between(Ti, Tj))
 
 
-def _prior_residual(xi, T_R, T_t, z_R, z_t):
+def _prior_pose(xi, T_R, T_t, z_R, z_t) -> se3.Pose:
+    """z^-1 T exp(xi): the pose whose log is the prior residual."""
     T = se3.retract(se3.Pose(T_R, T_t), xi)
-    return se3.log(se3.compose(se3.inverse(se3.Pose(z_R, z_t)), T))
+    return se3.compose(se3.inverse(se3.Pose(z_R, z_t)), T)
 
 
 def _se3_left_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
@@ -105,6 +117,38 @@ def _prior_jac(r):
     return _se3_left_jacobian_inv(-r)
 
 
+def _arccos_tangent(T: se3.Pose) -> torch.Tensor:
+    """The 6x6 map M, [..., 6, 6], that takes the exact Jacobian of log(T)
+    to the derivative of the f32 residual as forward mode takes it (the
+    JAX module's ``jacfwd``): in so3.log's generic branch the angle is
+    theta_q = arccos(cos_t) of the rounded cos_t, and its tangent is
+    d cos_t / sqrt(1 - cos_t^2) at that same cos_t. So the axial row of
+    d omega scales by kappa = sin(theta) / sqrt(1 - cos_t^2), the other
+    two by theta_q / theta (theta the exact angle, atan2(|u| / 2, cos_t)),
+    and d v = d(Jl^-1(omega) t) takes the change through 0.5 hat(t) (its
+    first order in omega). The series and near-pi branches take no arccos
+    of cos_t, and M is the identity there. cos_t is so3.log's (the same
+    operations on the same matrix)."""
+    R = so3.orthonormalize(T.R)
+    cos_t = torch.clamp((R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2] - 1.0) * 0.5, -1.0, 1.0)
+    u = so3.vee(R - R.transpose(-1, -2))
+    generic = (cos_t <= 1.0 - 1e-6) & (cos_t >= -1.0 + 1e-6)
+    one = torch.ones_like(cos_t)
+    n = torch.sqrt(torch.where(generic, torch.sum(u * u, dim=-1), one))
+    c = torch.where(generic, cos_t, torch.zeros_like(cos_t))
+    theta = torch.atan2(0.5 * n, c)
+    kappa = torch.where(generic, 0.5 * n * torch.rsqrt((1.0 - c) * (1.0 + c)), one)
+    rho = torch.where(generic, torch.arccos(c) / theta, one)
+    a = u / n[..., None]
+    aa = a[..., :, None] * a[..., None, :]
+    eye3 = torch.eye(3, dtype=R.dtype, device=R.device).expand_as(aa)
+    A_I = (kappa - 1.0)[..., None, None] * aa + (rho - 1.0)[..., None, None] * (eye3 - aa)
+    M = torch.eye(6, dtype=R.dtype, device=R.device).repeat(*R.shape[:-2], 1, 1)
+    M[..., :3, :3] += A_I
+    M[..., 3:, :3] = 0.5 * so3.hat(T.t) @ A_I
+    return M
+
+
 def huber_weight(r_norm2: torch.Tensor, delta: float) -> torch.Tensor:
     """IRLS weight for the Huber kernel on the weighted residual norm."""
     r = torch.sqrt(torch.clamp(r_norm2, min=1e-12))
@@ -118,13 +162,16 @@ def _linearize(g: F.FactorGraph, poses: se3.Pose, huber_delta: float):
     zeros6 = poses.t.new_zeros((E, 6))
     Ti = se3.take(poses, g.i)
     Tj = se3.take(poses, g.j)
-    r_e = _edge_residual(zeros6, zeros6, Ti.R, Ti.t, Tj.R, Tj.t, g.z.R, g.z.t)
-    Ji, Jj = _edge_jac(r_e, Ti, Tj)
+    T_e = _edge_pose(zeros6, zeros6, Ti.R, Ti.t, Tj.R, Tj.t, g.z.R, g.z.t)
+    r_e = se3.log(T_e)
+    M_e = _arccos_tangent(T_e)
+    Ji, Jj = (M_e @ J for J in _edge_jac(r_e, Ti, Tj))
 
     zerosP = poses.t.new_zeros((g.prior_capacity, 6))
     Tp = se3.take(poses, g.prior_idx)
-    r_p = _prior_residual(zerosP, Tp.R, Tp.t, g.prior_z.R, g.prior_z.t)
-    Jp = _prior_jac(r_p)
+    T_p = _prior_pose(zerosP, Tp.R, Tp.t, g.prior_z.R, g.prior_z.t)
+    r_p = se3.log(T_p)
+    Jp = _arccos_tangent(T_p) @ _prior_jac(r_p)
 
     # weights: diagonal information * robust kernel * validity mask
     info_e = g.sqrt_info ** 2

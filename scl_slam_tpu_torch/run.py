@@ -15,8 +15,8 @@ frame stamps, 0.1 s apart, and a run does not depend on the machine's speed
 (the JAX runner reads the wall clock). The last line of its
 output is a JSON report (``ate_rmse_m``, ``ate_rmse_odom_only_m``,
 ``loops_closed``, ``keyframes``, ``wall_s``, ...). Not ported yet, and
-refused with exit code 2: ``--odometry icp|imu`` (ROADMAP queue 1 item 4),
-``--loader native`` and ``--figure`` (item 7).
+refused with exit code 2: ``--odometry icp|imu`` (ROADMAP queue 1 item 3),
+``--loader native`` and ``--figure`` (item 5).
 """
 from __future__ import annotations
 
@@ -66,11 +66,11 @@ def _refuse(args) -> str | None:
     """The reason an option cannot run on the port yet, or None."""
     if args.odometry != "gt":
         return (f"--odometry {args.odometry} is not ported yet (ROADMAP queue 1 "
-                "item 4: front end)")
+                "item 3: front end)")
     if args.loader == "native":
-        return "--loader native is not ported yet (ROADMAP queue 1 item 7: I/O)"
+        return "--loader native is not ported yet (ROADMAP queue 1 item 5: I/O)"
     if args.figure:
-        return "--figure is not ported yet (ROADMAP queue 1 item 7: io/viz.py)"
+        return "--figure is not ported yet (ROADMAP queue 1 item 5: io/viz.py)"
     return None
 
 

@@ -27,9 +27,15 @@ run does not depend on the machine's speed (the JAX runner reads the wall
 clock). The last line of its output is the JSON report (``robots``,
 ``mode``, ``frames``, ``intra_loops``, ``inter_loops``, ``wall_s``,
 ``frames_per_s``, ``device``, ``output``, ``ate_rmse_m``; ``mode`` is
-``decentralized``, ``decentralized-tcp`` or ``fleet``). Not ported yet, and
-refused with exit code 2: ``--respawn`` and ``--checkpoint-every`` (item
-1: the checkpoint module); the trajectory figure is left out (item 7).
+``decentralized``, ``decentralized-tcp`` or ``fleet``). Over tcp,
+``--checkpoint-every N`` has each worker save its session every N fed
+frames, and ``--respawn K`` starts a worker that died before its report
+again with ``--resume``, at most K times (``respawn i/K`` on stderr):
+
+    python -m scl_slam_tpu_torch.run_multi --robots 2 --transport tcp \
+        --respawn 2 --checkpoint-every 5 --crash-robot 0 --crash-after 12
+
+The trajectory figure is left out (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -147,10 +153,16 @@ def report_view(mapper, get_pose, R: int) -> dict:
     return {"ate_rmse_m": ates}
 
 
+def _read(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
 def _run_tcp(args) -> int:
-    """One ``run_robot`` process per robot over real sockets. Any worker
-    that exits nonzero fails the run: the others are stopped and the exit
-    codes reported."""
+    """One ``run_robot`` process per robot over real sockets. A worker that
+    dies before writing its report is started again with ``--resume`` while
+    its ``--respawn`` budget lasts; one that fails past it fails the run:
+    the others are stopped and the exit codes reported."""
     R = args.robots
     workdir = tempfile.mkdtemp(prefix="scl_slam_torch_tcp_")
     args.output = os.path.abspath(args.output)
@@ -158,10 +170,10 @@ def _run_tcp(args) -> int:
     procs = []
     t0 = time.perf_counter()
 
-    def worker_cmd(r: int) -> list[str]:
+    def worker_cmd(r: int, ports: str = "auto", resume: bool = False) -> list[str]:
         cmd = [
             sys.executable, "-m", "scl_slam_tpu_torch.run_robot",
-            "--robot", str(r), "--robots", str(R), "--ports", "auto",
+            "--robot", str(r), "--robots", str(R), "--ports", ports,
             "--workdir", workdir, "--dataset", args.dataset,
             "--frames", str(args.frames), "--sequence", args.sequence,
             "--overlap", str(args.overlap), "--output", args.output,
@@ -171,7 +183,11 @@ def _run_tcp(args) -> int:
             cmd += ["--root", args.root]
         if args.config:
             cmd += ["--config", args.config]
-        if args.crash_robot >= 0 and r == args.crash_robot:
+        if args.checkpoint_every:
+            cmd += ["--checkpoint-every", str(args.checkpoint_every)]
+        if resume:
+            cmd += ["--resume"]
+        elif args.crash_robot >= 0 and r == args.crash_robot:
             cmd += ["--crash-after", str(args.crash_after)]
         return cmd
 
@@ -182,15 +198,32 @@ def _run_tcp(args) -> int:
     try:
         procs = [subprocess.Popen(worker_cmd(r), env=env) for r in range(R)]
         rcs: list[int | None] = [None] * R
+        restarts = [0] * R
         while any(rc is None for rc in rcs):
             time.sleep(0.2)
             for r, pr in enumerate(procs):
-                if rcs[r] is None:
-                    rcs[r] = pr.poll()
+                if rcs[r] is not None or (rc := pr.poll()) is None:
+                    continue
+                if rc == 0 or os.path.exists(os.path.join(workdir, f"out_{r}")):
+                    rcs[r] = 0  # its report is whole (written before the exit)
+                elif restarts[r] < args.respawn:
+                    restarts[r] += 1
+                    print(f"worker {r} died rc={rc}; respawn {restarts[r]}/{args.respawn}",
+                          file=sys.stderr, flush=True)
+                    # the peers read the ready sentinels once: the new
+                    # worker binds the port it published before
+                    try:
+                        ports = ",".join(_read(os.path.join(workdir, f"ready_{q}"))
+                                         for q in range(R))
+                    except OSError:
+                        ports = "auto"  # it died before the ready barrier
+                    procs[r] = subprocess.Popen(worker_cmd(r, ports, True), env=env)
+                else:
+                    rcs[r] = rc
             if any(rc not in (None, 0) for rc in rcs):
-                # a failed worker fails the run, whether or not it wrote its
-                # report; the others would wait for it until their barrier
-                # timeouts, so stop them now
+                # a failed worker (its respawns spent) fails the run,
+                # whether or not it wrote its report; the others would wait
+                # for it until their barrier timeouts, so stop them now
                 for q, pr in enumerate(procs):
                     if rcs[q] is None:
                         pr.terminate()
@@ -222,6 +255,10 @@ def _run_tcp(args) -> int:
         "device": reps[0]["device"],
         "output": args.output,
         "ate_rmse_m": reps[0]["ate_rmse_m"],
+        "respawns": sum(restarts),
+        # the workers' kernel launches, summed (what their last processes
+        # launched: a respawned worker counts from its resume)
+        "launches": {k: sum(rp["launches"][k] for rp in reps) for k in reps[0]["launches"]},
     }
     print(json.dumps(report))
     return 0
@@ -232,10 +269,6 @@ def _refuse(args) -> str | None:
     if args.fleet and args.transport == "tcp":
         return ("--fleet is a single-process serving mode; it has no tcp "
                 "transport (drop --transport tcp)")
-    if args.respawn or args.checkpoint_every:
-        return ("--respawn and --checkpoint-every need the checkpoint module, "
-                "which is not ported yet (ROADMAP queue 1 item 1: "
-                "runtime/checkpoint.py)")
     return None
 
 
@@ -249,9 +282,10 @@ def main(argv=None):
                    help="in-process bus (local) or one process per robot over "
                    "sockets (tcp)")
     p.add_argument("--respawn", type=int, default=0,
-                   help="tcp: restart a crashed worker (not ported yet)")
+                   help="tcp: start a worker that died again with --resume, at "
+                   "most this many times each")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="tcp: worker checkpoints (not ported yet)")
+                   help="tcp: each worker checkpoints every N fed frames")
     p.add_argument("--crash-robot", type=int, default=-1,
                    help="FAULT INJECTION (tcp tests): which robot crashes")
     p.add_argument("--crash-after", type=int, default=0,

@@ -18,8 +18,12 @@ The choreography runs on sentinel files in ``--workdir``:
 - after ``fed_<R-1>`` (no RPC can arrive any more) every worker runs a
   last solve and writes ``out_<r>``; robot 0's holds the joint ATE.
 
-``--resume`` and ``--checkpoint-every`` need the checkpoint module, which
-is not ported yet: they exit 2 (ROADMAP queue 1 item 1).
+Recovery: ``--checkpoint-every N`` saves the session every N fed frames
+(``runtime/checkpoint.py``, atomic) to ``<workdir>/ckpt_<r>.npz``, with the
+loop counters in the ``ckpt_counters_<r>`` sidecar; ``--resume`` restores
+it and restarts the feed at the checkpoint's ``_frames_seen`` (frames fed
+after it are fed again: peers drop their descriptors as out of order).
+``run_multi --respawn`` starts a crashed worker again this way.
 """
 from __future__ import annotations
 
@@ -63,17 +67,15 @@ def main(argv=None):
                    "ready_<r> sentinel (one machine only)")
     p.add_argument("--workdir", required=True, help="shared directory of the sentinels")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="checkpoint every N fed frames (not ported yet)")
+                   help="checkpoint every N fed frames to <workdir>/ckpt_<r>.npz "
+                   "(atomic); 0 disables")
     p.add_argument("--resume", action="store_true",
-                   help="restore a checkpoint and skip the frames fed (not ported yet)")
+                   help="restore <workdir>/ckpt_<r>.npz if present and skip the "
+                   "frames it has fed (the respawn path)")
     p.add_argument("--crash-after", type=int, default=0,
-                   help="FAULT INJECTION: exit with code 3 after feeding N frames")
+                   help="FAULT INJECTION: exit with code 3 after feeding N frames; "
+                   "ignored under --resume")
     args = p.parse_args(argv)
-    if args.resume or args.checkpoint_every:
-        print("--resume and --checkpoint-every need the checkpoint module, which "
-              "is not ported yet (ROADMAP queue 1 item 1: runtime/checkpoint.py)",
-              file=sys.stderr)
-        return 2
     require_device(args.device)
 
     import torch
@@ -95,6 +97,22 @@ def main(argv=None):
     mapper.attach_bus(bus)
 
     wd = args.workdir
+    ckpt_path = os.path.join(wd, f"ckpt_{r}.npz")
+    start_at = intra = inter = 0
+    if args.resume and os.path.exists(ckpt_path):
+        from .runtime import checkpoint
+
+        checkpoint.load(mapper, ckpt_path)
+        # _frames_seen counts this robot's own fed frames (a peer ingest
+        # does not touch it): the resume cursor
+        start_at = min(mapper._frames_seen, len(splits[r]))
+        # the loop counters are the report's, not the mapper's: without the
+        # sidecar a respawned worker would report only its later loops
+        try:
+            with open(os.path.join(wd, f"ckpt_counters_{r}")) as f:
+                intra, inter = (int(x) for x in f.read().split(","))
+        except (OSError, ValueError):
+            pass
     # robot r waits behind r robots' whole feeds
     t_ready, t_feed = 120.0 * max(1, R), 900.0 * max(1, R)
     _publish(wd, f"ready_{r}", str(bus.port))
@@ -108,24 +126,34 @@ def main(argv=None):
     if r > 0:
         _wait_for(os.path.join(wd, f"fed_{r - 1}"), t_feed)
 
-    intra = inter = fed = 0
-    for k in splits[r]:
+    fed = 0
+    for k in splits[r][start_at:]:
         info = feed(mapper, k, get_scan, get_pose)
         if info is not None:
             intra += bool(info.get("loop"))
             inter += bool(info.get("inter_loop"))
         fed += 1
-        if args.crash_after and fed >= args.crash_after:
+        if args.checkpoint_every and fed % args.checkpoint_every == 0:
+            from .runtime import checkpoint
+
+            checkpoint.save(mapper, ckpt_path)
+            _publish(wd, f"ckpt_counters_{r}", f"{intra},{inter}")
+        if args.crash_after and not args.resume and fed >= args.crash_after:
             os._exit(3)  # fault injection: a hard crash mid-feed
     _publish(wd, f"fed_{r}")
 
     # all feeding done everywhere: no verification RPC can still arrive
     _wait_for(os.path.join(wd, f"fed_{R - 1}"), t_feed)
     mapper.optimize()
+    from .ops import kernels
+
     out = {
         "robot": r, "frames": n, "intra_loops": intra, "inter_loops": inter,
         "device": torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu",
         "counts": [int(c) for c in mapper.state.counts[:R].tolist()],
+        # this process's kernel launches (since its start: a respawned
+        # worker's count begins at its resume)
+        "launches": dict(kernels.LAUNCHES),
     }
     if r == 0:
         os.makedirs(args.output, exist_ok=True)

@@ -809,8 +809,9 @@ class Mapper:
     The entry point runs on the card: ``device`` defaults to ``"cuda"`` and
     the constructor raises where there is none, unless the caller asks for
     ``device="cpu"`` (where every kernel takes its plain version). A full
-    keyframe block is compacted by eviction (:meth:`_compact`); checkpoints
-    are not ported yet (ROADMAP queue 1).
+    keyframe block is compacted by eviction (:meth:`_compact`); a session
+    is saved and resumed by ``runtime/checkpoint.py`` (``_frames_seen``,
+    the own frames fed so far, is its resume cursor).
 
     Threads: with a socket bus, peer descriptors arrive and verification
     requests are served on the bus's threads. Every state-changing entry
@@ -835,6 +836,9 @@ class Mapper:
         self.robot = cfg.robot_id
         self._last_kf_pose: se3.Pose | None = None
         self._keyframes = 0
+        # own frames offered to the keyframe gate (add_frame, add_frames,
+        # replay): the resume cursor of a checkpoint
+        self._frames_seen = 0
         self._last_opt_time = float("-inf")
         self._pending_intra = None
         self._pending_intra_valid = False
@@ -878,6 +882,7 @@ class Mapper:
     def _gate_frames(self, poses, n: int, apply_gate: bool) -> tuple[list, list]:
         accepted, sel = [], []
         for i in range(n):
+            self._frames_seen += 1
             take = (not apply_gate) or self.should_add_keyframe(poses[i])
             accepted.append(take)
             if take:
@@ -1038,6 +1043,8 @@ class Mapper:
             pos += chunk
         if pos < len(sel):
             rem = sel[pos:]
+            # counted above: add_frames counts the remainder again
+            self._frames_seen -= len(rem)
             out = self.add_frames(
                 [poses[i] for i in rem],
                 [scans[i] for i in rem],
@@ -1056,6 +1063,7 @@ class Mapper:
         due for the keyframe, it runs right after the ingest and
         :meth:`spin_once` consumes the stored result."""
         self._drain_server_loops()
+        self._frames_seen += 1
         if not self.should_add_keyframe(pose):
             return None
         self._last_kf_pose = pose
@@ -1133,7 +1141,7 @@ class Mapper:
     def attach_mesh(self, mesh, axis: str = "shard") -> None:
         raise NotImplementedError(
             "the mesh-attached distributed solve is not ported yet "
-            "(ROADMAP queue 1 item 6: distributed)"
+            "(ROADMAP queue 1 item 4: distributed)"
         )
 
     # -- inter-robot loop closure --
@@ -1400,6 +1408,56 @@ class Mapper:
             name = chr(ord("a") + r)
             tio.save_tum(os.path.join(directory, f"{name}_tum.txt"), poses, stamps)
             tio.save_kitti(os.path.join(directory, f"{name}_kitti.txt"), poses)
+
+    def export_artifacts(self, directory: str):
+        """Global map (``global_map.ply``), each robot's keyframe positions
+        (``<name>_keyposes.pcd``) and the loop constraints
+        (``loop_constraints.json``): the offline equivalents of the
+        reference's rviz topics and PCD exports. Each part reads the state
+        under ``_write_lock``, as :meth:`global_map` does."""
+        from ..io import export as eio
+
+        os.makedirs(directory, exist_ok=True)
+        gmap = self.global_map()
+        if len(gmap):
+            eio.save_ply(os.path.join(directory, "global_map.ply"), gmap)
+        K = self.cfg.keyframe.max_keyframes
+        with self._write_lock:
+            counts = to_numpy(self.state.counts)
+            opt_t = [to_numpy(self.state.opt_t[r * K : r * K + int(counts[r])])
+                     for r in range(self.cfg.number_of_robots)]
+        for r, keyposes in enumerate(opt_t):
+            if len(keyposes):
+                eio.save_pcd(os.path.join(directory, f"{chr(ord('a') + r)}_keyposes.pcd"), keyposes)
+        eio.save_loop_constraints(
+            os.path.join(directory, "loop_constraints.json"), self.loop_constraints()
+        )
+
+    def start_map_publisher(self, directory: str, interval: float | None = None):
+        """A daemon thread that calls :meth:`export_artifacts` every
+        ``interval`` seconds (default ``global_map_publish_interval``): the
+        reference's ``globalMapThread``. A failed export is logged and never
+        ends the session. Returns a ``stop()`` callable."""
+        interval = interval or self.cfg.global_map_publish_interval
+        stop = threading.Event()
+
+        def loop():
+            while not stop.wait(interval):
+                try:
+                    self.export_artifacts(directory)
+                except Exception:  # an export must never kill the session
+                    from ..utils.logging import get_logger
+
+                    get_logger("mapper").exception("map publish failed")
+
+        t = threading.Thread(target=loop, daemon=True)
+        t.start()
+
+        def stopper():
+            stop.set()
+            t.join(timeout=5)
+
+        return stopper
 
     def global_map(self, max_points: int = 1 << 18) -> np.ndarray:
         """The assembled global map: a prefix of every keyframe's cloud in

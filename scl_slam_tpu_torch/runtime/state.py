@@ -108,22 +108,29 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def state_to_numpy(state, prefix: str = "") -> dict[str, np.ndarray]:
-    """Flatten a state to ``{"desc_db.keys": array, ...}``: nested
-    NamedTuple fields joined by dots, every leaf as a numpy array.
+def state_leaves(state, prefix: str = "") -> dict:
+    """The leaves of a state as ``{"desc_db.keys": leaf, ...}``: nested
+    NamedTuple fields joined by dots, walked depth first in field order,
+    which is the order of ``jax.tree_util.tree_flatten`` on the JAX
+    package's MapperState (the checkpoint's ``leaf_{i}``)."""
+    out: dict = {}
+    for name, v in zip(state._fields, state):
+        key = f"{prefix}{name}"
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            out.update(state_leaves(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def state_to_numpy(state) -> dict[str, np.ndarray]:
+    """:func:`state_leaves` with every leaf as a numpy array.
 
     Takes this package's MapperState, and equally any tree of NamedTuples
     with the same field names whose leaves ``np.asarray`` reads — which is
     how a test flattens a ``scl_slam_tpu`` MapperState to hand over.
     """
-    out: dict[str, np.ndarray] = {}
-    for name, v in zip(state._fields, state):
-        key = f"{prefix}{name}"
-        if isinstance(v, tuple) and hasattr(v, "_fields"):
-            out.update(state_to_numpy(v, key + "."))
-        else:
-            out[key] = to_numpy(v)
-    return out
+    return {k: to_numpy(v) for k, v in state_leaves(state).items()}
 
 
 # nested NamedTuple fields of MapperState, by field name

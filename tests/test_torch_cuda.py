@@ -613,3 +613,68 @@ def test_pcm_filter_card_matches_cpu(cuda_device):
         labels = np.random.RandomState(seed).permutation(np.arange(96) % (seed + 2))
         adj = torch.from_numpy(labels[:, None] == labels[None, :])
         assert torch.equal(pcm.greedy_max_clique(adj.to(cuda_device)).cpu(), pcm.greedy_max_clique(adj))
+
+
+@pytest.mark.cuda
+def test_checkpoint_card_to_cpu_and_back(cuda_device, tmp_path):
+    """A session saved on the card loads on the CPU and the reverse, every
+    state array bit-equal to the one saved, and both continue 4 frames to
+    the same keyframes with the trajectories within 1e-4 m (the card's
+    solve sums in another order)."""
+    from scl_slam_tpu_torch.config import (
+        KeyframeConfig, LoopConfig, OptimizerConfig, ScanContextParams, SlamConfig)
+    from scl_slam_tpu_torch.geometry import se3
+    from scl_slam_tpu_torch.runtime import Mapper, checkpoint
+    from scl_slam_tpu_torch.runtime.state import state_to_numpy
+
+    cfg = SlamConfig(
+        keyframe=KeyframeConfig(max_keyframes=16, points_per_keyframe=256, raw_points_capacity=512),
+        loop=LoopConfig(near_keyframes=2, submap_capacity=512, queue_capacity=8),
+        optimizer=OptimizerConfig(edge_capacity=64, gn_iters=2, cg_iters=8),
+        scan_context=ScanContextParams(exclude_recent=2),
+    )
+    rng = np.random.RandomState(0)
+    scans = [rng.uniform(-20, 20, (400, 3)).astype(np.float32) for _ in range(10)]
+
+    def pose(k):
+        return se3.Pose(np.eye(3, dtype=np.float32), np.float32([2.0 * k, 0.1 * k, 0.0]))
+
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        m = Mapper(cfg, src)
+        for k in range(6):
+            m.add_frame(pose(k), scans[k], stamp=0.1 * k)
+            m.spin_once(now=0.1 * k)
+        path = str(tmp_path / f"{src}.npz")
+        checkpoint.save(m, path)
+        n = checkpoint.load(Mapper(cfg, dst), path)
+        loaded = state_to_numpy(n.state)
+        for k, v in state_to_numpy(m.state).items():
+            np.testing.assert_array_equal(loaded[k], v, err_msg=k)
+        assert n._frames_seen == m._frames_seen == 6
+        for k in range(6, 10):
+            for x in (m, n):
+                assert x.add_frame(pose(k), scans[k], stamp=0.1 * k) is not None
+                x.spin_once(now=0.1 * k)
+        np.testing.assert_allclose(n.trajectory(), m.trajectory(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_timers_on_the_card(cuda_device, tmp_path):
+    """``utils/timing.py`` on the card: a synchronizing stage covers the
+    work it launched, and the profiler's trace holds the card's kernels."""
+    from scl_slam_tpu_torch.utils import timing
+
+    a = torch.randn(4096, 4096, device=cuda_device)
+    t = timing.Timers(cuda_device)
+    with t.time("sync"):
+        a @ a
+    rep = t.report()
+    assert rep["sync"]["count"] == 1
+    assert rep["sync"]["max_ms"] > 0.1  # a 4,096-cube f32 matmul is no faster
+    with timing.device_trace(str(tmp_path)) as prof:
+        a @ a
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    assert (tmp_path / "trace.json").exists()
+    assert any(e.device_type == DeviceType.CUDA for e in prof.key_averages())

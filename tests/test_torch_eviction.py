@@ -9,8 +9,8 @@ equal too (eviction only moves rows and recomposes the odometry chain in
 float64 numpy on both sides). A session driven past capacity must match
 the JAX session keyframe for keyframe (poses within 1e-5 m: the two
 packages compose poses in another order) and keep the invariants of
-``tests/test_eviction.py``. The checkpoint round trip with the archive
-waits for the checkpoint port (ROADMAP queue 1).
+``tests/test_eviction.py``. The checkpoint round trip with the archive is
+held in ``tests/test_torch_checkpoint.py``.
 """
 import numpy as np
 import pytest

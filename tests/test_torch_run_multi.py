@@ -1,9 +1,12 @@
 """``python -m scl_slam_tpu_torch.run_multi`` on the CPU: the in-process
 session and the process-per-robot one over sockets print the JSON report
-with inter-robot loops; the default device is the card; the options that
-are not ported yet exit 2 (``--fleet`` runs: ``test_torch_fleet.py``); a
-worker that fails fails the run.
+with inter-robot loops; the default device is the card; ``--fleet`` over
+tcp exits 2 (``--fleet`` runs: ``test_torch_fleet.py``); a worker that
+fails fails the run, and one that is respawned resumes from its
+checkpoint.
 """
+import contextlib
+import io
 import json
 import os
 
@@ -43,6 +46,20 @@ def _report(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
+@pytest.fixture(scope="module")
+def tcp_report(tmp_path_factory):
+    """The process-per-robot run at 40 frames, run once for the tests that
+    hold it and the respawned run against it."""
+    tmp = tmp_path_factory.mktemp("tcp")
+    (tmp / "small.yaml").write_text(SMALL)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = run_multi.main(["--robots", "2", "--frames", "40", "--device", "cpu", "--config",
+                             str(tmp / "small.yaml"), "--output", str(tmp / "out"), "--transport", "tcp"])
+    assert rc == 0
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
 def test_run_multi_local_on_cpu(small_args, tmp_path, capsys):
     assert run_multi.main(small_args) == 0
     rep = _report(capsys)
@@ -52,9 +69,8 @@ def test_run_multi_local_on_cpu(small_args, tmp_path, capsys):
     assert sorted(os.listdir(tmp_path / "out")) == ["a_kitti.txt", "a_tum.txt", "b_kitti.txt", "b_tum.txt"]
 
 
-def test_run_multi_tcp_two_processes_on_cpu(small_args, capsys):
-    assert run_multi.main(small_args + ["--transport", "tcp"]) == 0
-    rep = _report(capsys)
+def test_run_multi_tcp_two_processes_on_cpu(tcp_report):
+    rep = tcp_report
     assert rep["mode"] == "decentralized-tcp" and rep["device"] == "cpu"
     assert rep["inter_loops"] >= 1, rep
     assert set(rep["ate_rmse_m"]) == {"a", "b"} and max(rep["ate_rmse_m"].values()) < 0.1
@@ -77,16 +93,39 @@ def test_defaults_to_the_card():
     run_multi.require_device("cpu")
 
 
-@pytest.mark.parametrize("opts", [["--fleet", "--respawn", "1"], ["--respawn", "1"],
-                                  ["--checkpoint-every", "5"]])
-def test_options_not_ported_exit_2(small_args, capsys, opts):
-    assert run_multi.main(small_args + opts) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "checkpoint" in err
+def test_fleet_over_tcp_exits_2(small_args, capsys):
+    assert run_multi.main(small_args + ["--fleet", "--transport", "tcp"]) == 2
+    assert "no tcp" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("opts", [["--resume"], ["--checkpoint-every", "3"]])
-def test_worker_resume_exits_2(small_args, tmp_path, capsys, opts):
-    argv = small_args + ["--robot", "0", "--ports", "auto", "--workdir", str(tmp_path)] + opts
-    assert run_robot.main(argv) == 2
-    assert "checkpoint module" in capsys.readouterr().err
+def test_tcp_respawn_resumes_crashed_worker(small_args, tcp_report, capsys):
+    """Robot 0 crashes after 12 of its 20 frames; the supervisor starts it
+    again with --resume, from its checkpoint at 10 (tests/test_run_multi_tcp.py's
+    bounds: a whole report, inter loops, both ATEs under 1 m). On the CPU
+    the resumed run closes the uncrashed run's inter loops and ends at its
+    ATE (13 loops in both measured)."""
+    assert run_multi.main(small_args + ["--transport", "tcp", "--respawn", "2", "--checkpoint-every", "5",
+                                        "--crash-robot", "0", "--crash-after", "12"]) == 0
+    out, err = capsys.readouterr()
+    rep = json.loads(out.strip().splitlines()[-1])
+    assert "respawn 1/2" in err and "respawn 2/2" not in err and rep["respawns"] == 1
+    assert rep["mode"] == "decentralized-tcp" and rep["inter_loops"] >= 1, rep
+    assert set(rep["ate_rmse_m"]) == {"a", "b"} and max(rep["ate_rmse_m"].values()) < 1.0
+    assert rep["inter_loops"] == tcp_report["inter_loops"]
+    assert rep["ate_rmse_m"] == tcp_report["ate_rmse_m"]
+
+
+def test_worker_checkpoint_and_resume(small_args, tmp_path):
+    """One worker alone: a run that checkpoints every 5 frames, then a
+    --resume run in the same directory, which restarts at the checkpoint's
+    cursor (frame 10 of 12) and reports what the whole run reported."""
+    argv = small_args[:]
+    argv[argv.index("--robots") + 1] = "1"
+    argv[argv.index("--frames") + 1] = "12"
+    argv += ["--robot", "0", "--ports", "auto", "--workdir", str(tmp_path), "--checkpoint-every", "5"]
+    assert run_robot.main(argv) == 0
+    whole = json.loads((tmp_path / "out_0").read_text())
+    assert (tmp_path / "ckpt_0.npz").exists() and (tmp_path / "ckpt_counters_0").exists()
+    assert run_robot.main(argv + ["--resume", "--crash-after", "1"]) == 0  # ignored on resume
+    resumed = json.loads((tmp_path / "out_0").read_text())
+    assert resumed == whole and whole["counts"] == [whole["counts"][0]] and whole["counts"][0] > 0

@@ -6,12 +6,19 @@ held by damping), made from a numpy seed.
 Tolerances, with their reasons:
 - residuals 1e-5 and chi2 relative 1e-5: f32 log/exp of the two libraries
   a few ulps apart;
-- Jacobian blocks 2e-5 relative to the largest entry: the port writes the
-  SE(3) right Jacobian inverse and an adjoint in closed form where JAX
-  differentiates the residual with ``jacfwd``;
-- solved poses 2e-3 m / 2e-4, chi2 history relative 2e-3: CG stops after a
-  fixed 48 iterations short of convergence and amplifies those ulps (and
-  on the card ``index_add_`` sums in a varying order, the same size).
+- Jacobian blocks 2e-5 relative to the largest entry: both packages take
+  them by forward-mode autodiff of the f32 residual, whose arccos turns
+  one rounding of cos_t into a relative error of the axial row of up to
+  ulp(1) / (1 - cos_t) (see tests/test_torch_chain_solver.py);
+- solved poses 3e-4 m / 3e-5 (9.7e-5 / 7.2e-6 measured without the coarse
+  level, 2.5e-5 / 2.8e-6 with it), chi2 history relative 2e-3 (3.4e-4
+  measured): CG stops after a fixed 48 iterations short of convergence
+  and amplifies those ulps (and on the card ``index_add_`` sums in a
+  varying order, the same size), and each package's f32 chi2 carries its
+  arccos rounding. With the coarse level the solve converges, and its
+  last Gauss-Newton step is below 1e-4 m (1.5e-5 measured, JAX's 9.5e-6;
+  an exact closed-form Jacobian steps 2.2e-3 there); without it
+  both packages still step ~0.23 m at the sixth.
 """
 import numpy as np
 import pytest
@@ -160,10 +167,9 @@ def test_add_between_block_equals_sequential_masked_appends():
 
 @pytest.mark.parametrize("start", ["dead_reckoning", "far"])
 def test_linearize_matches_jax(problem, start):
-    """Residuals, the closed-form Jacobian blocks and the weights against
+    """Residuals, the forward-mode Jacobian blocks and the weights against
     JAX's ``jacfwd`` at the dead-reckoned start and at random poses whose
-    residual rotations pass 1.5 rad (the closed-form branch of the
-    coefficients begins at 1 rad)."""
+    residual rotations pass 1.5 rad."""
     G, jp, g, tp = problem
     if start == "far":
         rng = np.random.RandomState(11)
@@ -198,8 +204,10 @@ def test_solve_matches_jax(problem, coarse_stride):
     got = S.solve(g, tp, **kw)
     ref = JS.solve(G, jp, **kw)
     np.testing.assert_allclose(got.chi2_history.numpy(), np.asarray(ref.chi2_history), rtol=2e-3)
-    np.testing.assert_allclose(got.poses.t.numpy(), np.asarray(ref.poses.t), rtol=0, atol=2e-3)
-    np.testing.assert_allclose(got.poses.R.numpy(), np.asarray(ref.poses.R), rtol=0, atol=2e-4)
+    np.testing.assert_allclose(got.poses.t.numpy(), np.asarray(ref.poses.t), rtol=0, atol=3e-4)
+    np.testing.assert_allclose(got.poses.R.numpy(), np.asarray(ref.poses.R), rtol=0, atol=3e-5)
+    if coarse_stride:  # converged: the last step settles
+        assert float(got.delta_norms[-1]) < 1e-4
     assert float(got.chi2_history[-1]) < 1e-2 * float(got.chi2_history[0])
     assert got.cg_residuals.shape == got.delta_norms.shape == (6,)
     if coarse_stride == 0:  # the empty slots stay where they were
