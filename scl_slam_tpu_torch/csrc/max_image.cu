@@ -28,8 +28,11 @@
 //
 // Design: a grid of (chunks, frames) blocks, the chunks of a frame
 // contiguous, a multiple of 4 points long and at least the split's points
-// a block (ops/kernels.py::k2_geometry). A block clears its R x S image (at
-// most 4096 bins, 16 KB) as uint32 in shared memory, walks its chunk
+// a block (ops/kernels.py::k2_geometry). A block clears its R x S image
+// as uint32 in shared memory (Scan Context's 20 x 60 bins take 4.7 KB,
+// LiDAR-Iris's 80 x 360 take 113 KB: above 48 KB the launch opts in to the
+// card's larger shared memory a block, 227 KB or ~58,000 bins on an H100,
+// which scl_max_image_max_bins reports), walks its chunk
 // (where N % 4 == 0 and the rows are 16-byte aligned, with 16-byte loads:
 // float4 values, int4 ring and sector, 4 valid bytes as one word; with a
 // scalar loop elsewhere), and applies atomicMax on the bits. Then it
@@ -39,9 +42,13 @@
 // a clear, a scan and up to R x S global atomics, which the frame's other
 // chunks aim at the same addresses: so the chunks are long (4,096 points
 // and more) and a one-frame launch runs on a few dozen SMs, near the
-// floor of a launch (scripts/torch_k2_k6_sweep.py; PERF.md).
+// floor of a launch (scripts/torch_k2_k6_sweep.py; PERF.md). A large image
+// makes the clear and the flush cost more than a short chunk's scan, so
+// k2_geometry lengthens the chunks with the bin count.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -108,6 +115,35 @@ bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// the default dynamic shared memory a block; more needs the opt-in
+constexpr size_t kDefaultSmem = 48 * 1024;
+
+// Opts a kernel in to all the shared memory a block that the device allows,
+// once a process and device (the attribute holds for the current device
+// only; a later call on that device, under CUDA-graph capture too, sets
+// nothing; the limit is only ever raised, so concurrent callers cannot
+// lower it). done is null for a device past kMaxDevices: set every call.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, int device, std::atomic<bool>* done) {
+  if (smem <= kDefaultSmem || (done != nullptr && done->load())) return cudaSuccess;
+  int optin = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess && done != nullptr) done->store(true);
+  return err;
+}
+
+constexpr int kMaxDevices = 64;
+// per device and template instance (kVec), false
+std::atomic<bool> g_smem_optin[kMaxDevices][2];
+
+std::atomic<bool>* optin_flag(int device, int vec) {
+  return device >= 0 && device < kMaxDevices ? &g_smem_optin[device][vec ? 1 : 0] : nullptr;
+}
+
 }  // namespace
 
 // Geometry (threads, chunk_len, chunks) from ops/kernels.py::k2_geometry;
@@ -132,6 +168,9 @@ extern "C" int scl_max_image(const float* values, const int32_t* ring,
   }
   const dim3 grid(chunks, batch);
   const size_t smem = bins * sizeof(unsigned int);
+  err = vec ? allow_smem(max_image_kernel<true>, smem, device, optin_flag(device, 1))
+            : allow_smem(max_image_kernel<false>, smem, device, optin_flag(device, 0));
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (vec) {
     max_image_kernel<true><<<grid, threads, smem, s>>>(values, ring, sector, valid, out, n,
                                                        rings, sectors, chunk_len);
@@ -140,4 +179,15 @@ extern "C" int scl_max_image(const float* values, const int32_t* ring,
                                                         rings, sectors, chunk_len);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The most bins an image may have on this device: its opt-in shared memory
+// a block over 4 bytes a bin; -1 on an error.
+extern "C" int scl_max_image_max_bins(int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return optin / static_cast<int>(sizeof(unsigned int));
 }

@@ -1,3 +1,3 @@
-from . import base, registry, scan_context
+from . import base, geometric, lidar_iris, m2dp, registry, scan_context, shot
 
-__all__ = ["base", "registry", "scan_context"]
+__all__ = ["base", "geometric", "lidar_iris", "m2dp", "registry", "scan_context", "shot"]

@@ -42,6 +42,34 @@ class SolveResult(NamedTuple):
     chi2_history: torch.Tensor   # [gn_iters + 1]
     cg_residuals: torch.Tensor   # [gn_iters] final CG residual norms
     delta_norms: torch.Tensor    # [gn_iters] update magnitudes
+    # 0-d int32, the port's own: 0 while no step broke down, else the
+    # first Gauss-Newton step that did and its flags (breakdown_stages)
+    breakdown: torch.Tensor
+
+
+# the per-step flags of SolveResult.breakdown, one bit each: the linear
+# system (the block diagonal or the right-hand side) non-finite, a 6x6
+# block of the block-Jacobi preconditioner not factored or its inverse
+# non-finite, the coarse levels' start of PCG non-finite, a PCG step's
+# curvature p.Ap <= 0 while r.z > 0 (its step size then comes from the
+# 1e-30 clamp), its r.z <= 0 (the preconditioned residual norm: PCG stops
+# there, see solve), a PCG step size (alpha or beta) non-finite, the PCG
+# solution non-finite, the step after the coarse post-correction
+# non-finite, the chi2 after the retraction non-finite
+BREAKDOWN_FLAGS = (
+    "linear system", "block-Jacobi", "coarse start", "p.Ap <= 0", "r.z <= 0",
+    "PCG step size", "PCG solution", "coarse correction", "chi2",
+)
+
+
+def breakdown_stages(code: int) -> str:
+    """A SolveResult.breakdown code in words ("" for 0)."""
+    code = int(code)
+    if code == 0:
+        return ""
+    step, mask = divmod(code - 1, 1 << len(BREAKDOWN_FLAGS))
+    names = [n for b, n in enumerate(BREAKDOWN_FLAGS) if mask >> b & 1]
+    return f"GN step {step}: " + ", ".join(names)
 
 
 def _edge_pose(xi_i, xi_j, Ti_R, Ti_t, Tj_R, Tj_t, z_R, z_t) -> se3.Pose:
@@ -392,7 +420,9 @@ def solve(
 
     cur = poses
     chi2s, cg_res, dnorms = [F.chi2(g, poses)], [], []
-    for _ in range(gn_iters):
+    breakdown = torch.zeros((), dtype=torch.int32, device=dev)
+    flag_bits = 1 << torch.arange(len(BREAKDOWN_FLAGS), dtype=torch.int32, device=dev)
+    for step in range(gn_iters):
         r_e, Ji, Jj, w_e, r_p, Jp, w_p = _linearize(g, cur, huber_delta)
 
         # block diagonal of J^T W J, and the damping blocks that keep
@@ -413,7 +443,8 @@ def solve(
 
         # block-Jacobi preconditioner: the exact inverse of each 6x6 block
         # (from its Cholesky factor)
-        D_inv = _cho_inverse(_cholesky(D)[0])
+        L_D, bad_D = _cholesky(D)
+        D_inv = _cho_inverse(L_D)
 
         if coarse_stride > 0:
             Hij = _JtWJ(Ji, w_e, Jj)
@@ -466,23 +497,43 @@ def solve(
         if coarse_stride > 0:
             x = coarse_apply(b)
             r = b - Hx(x)
+            bad_start = ~torch.isfinite(x).all()
         else:
             x = torch.zeros_like(b)
             r = b
+            bad_start = bad_D.new_zeros(())
         def dot(a, c):
             return torch.dot(a.reshape(-1), c.reshape(-1))
 
+        # r.z is clamped at 0: in f32 the preconditioner (its coarse term is
+        # one refinement step on an approximate inverse) can turn indefinite
+        # on a residual, and a step with r.z <= 0 then made beta ~1e30 and
+        # the update non-finite (about one start in 30 at 4,096 poses on an
+        # H100). With r.z = 0, alpha and beta are 0, so r does not move:
+        # PCG stops at its last iterate, or restarts from p = z where r.z
+        # recomputed from that r comes back above 0. Where r.z > 1e-30 the
+        # steps are the JAX function's (beta = r.z' / max(r.z, 1e-30)).
         z = precond(r)
         p = z
-        rz = dot(r, z)
+        rz_raw = [dot(r, z)]
+        rz = torch.clamp(rz_raw[0], min=0.0)
+        curvatures, steps = [], []
         for _ in range(cg_iters):
             Ap = Hx(p)
-            alpha = rz / torch.clamp(dot(p, Ap), min=1e-30)
+            pAp = dot(p, Ap)
+            curvatures.append(pAp)
+            alpha = rz / torch.clamp(pAp, min=1e-30)
             x = torch.addcmul(x, alpha, p)
             r = torch.addcmul(r, alpha, Ap, value=-1.0)
             z = precond(r)
-            rz2 = dot(r, z)
-            p = torch.addcmul(z, rz2 / torch.clamp(rz, min=1e-30), p)
+            rz_raw.append(dot(r, z))
+            rz2 = torch.clamp(rz_raw[-1], min=0.0)
+            # 0 after a stop (r.z = 0): r.z recomputed from the same r can
+            # come back a rounding above 0, and a restart from p = z is
+            # then a steepest-descent step, not a step of ~1e30
+            beta = torch.nan_to_num(rz2 / rz, nan=0.0, posinf=0.0)
+            steps += [alpha, beta]
+            p = torch.addcmul(z, beta, p)
             rz = rz2
         dx = x
         if coarse_stride > 0:
@@ -493,10 +544,28 @@ def solve(
         chi2s.append(F.chi2(g, cur))
         cg_res.append(torch.linalg.norm(r))
         dnorms.append(torch.linalg.norm(dx))
+        # where this step broke down, if it did (no host read: a handful of
+        # launches against the step's thousands)
+        flags = torch.stack([
+            ~(torch.isfinite(H_diag).all() & torch.isfinite(b).all()),
+            bad_D.any() | ~torch.isfinite(D_inv).all(),
+            bad_start,
+            ((torch.stack(curvatures) <= 0) & (torch.stack(rz_raw[:-1]) > 0)).any()
+            if curvatures else bad_D.new_zeros(()),
+            (torch.stack(rz_raw) <= 0).any(),
+            ~torch.isfinite(torch.stack(steps)).all() if steps else bad_D.new_zeros(()),
+            ~torch.isfinite(x).all(),
+            ~torch.isfinite(dx).all(),
+            ~torch.isfinite(chi2s[-1]),
+        ])
+        mask = (flags.to(torch.int32) * flag_bits).sum().to(torch.int32)
+        code = 1 + step * (1 << len(BREAKDOWN_FLAGS)) + mask
+        breakdown = torch.where((breakdown == 0) & (mask != 0), code, breakdown)
     empty = poses.t.new_zeros((0,))
     return SolveResult(
         poses=cur,
         chi2_history=torch.stack(chi2s),
         cg_residuals=torch.stack(cg_res) if cg_res else empty,
         delta_norms=torch.stack(dnorms) if dnorms else empty,
+        breakdown=breakdown,
     )

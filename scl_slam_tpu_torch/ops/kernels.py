@@ -173,6 +173,8 @@ def load_library() -> ctypes.CDLL:
             lib.scl_icp_moments_batched.restype = i
             lib.scl_max_image.argtypes = [p] * 5 + [i] * 9 + [p]
             lib.scl_max_image.restype = i
+            lib.scl_max_image_max_bins.argtypes = [i]
+            lib.scl_max_image_max_bins.restype = i
             lib.scl_nn_select.argtypes = [p] * 7 + [i] * 8 + [p]
             lib.scl_nn_select.restype = i
             lib.scl_nearest_neighbors.argtypes = [p] * 7 + [i] * 7 + [p]
@@ -320,13 +322,14 @@ VARIANTS = ("mineq", "argmin")
 
 def _exact_d2(qx, qy, qz, t):
     """``((dx*dx) + (dy*dy)) + (dz*dz)`` of queries [B, Nq, 1] per
-    coordinate against targets t [B, >=3, C], in exactly that order."""
-    dx = qx - t[:, None, 0]
-    dy = qy - t[:, None, 1]
-    dz = qz - t[:, None, 2]
-    d2 = dx * dx
-    d2 = d2 + dy * dy
-    return d2 + dz * dz                                     # [B, Nq, C]
+    coordinate against targets t [B, >=3, C], in exactly that order (in
+    place, one transient beside the result)."""
+    d2 = torch.sub(qx, t[:, None, 0])
+    d2.mul_(d2)
+    d = torch.sub(qy, t[:, None, 1])
+    d2.add_(d.mul_(d))
+    torch.sub(qz, t[:, None, 2], out=d)
+    return d2.add_(d.mul_(d))                               # [B, Nq, C]
 
 
 def _default_chunk(B: int, nq: int, nt: int, device: torch.device) -> int:
@@ -365,6 +368,29 @@ def _gather_columns(payload, idx, found):
     return torch.where(found[:, None], sel, 0.0)
 
 
+def _active_lanes_only(fn, query, payload, active, chunk, *rest):
+    """On the CPU, ``fn`` on the active lanes alone, its outputs scattered
+    back into (inf, 0) for the inactive ones; None where every lane is
+    active, and on a card (the lanes would be read on the host, which a
+    CUDA-graph capture of the plain version forbids). The chunk stays the
+    one of all B lanes, so every active lane is walked in the same chunks
+    as in a call on all of them."""
+    if query.device.type != "cpu":
+        return None
+    lanes = active.to(torch.bool)
+    live = torch.nonzero(lanes).flatten()
+    if live.numel() == lanes.numel():
+        return None
+    B, nq = query.shape[:2]
+    if chunk is None:
+        chunk = _default_chunk(B, nq, payload.shape[2], query.device)
+    d2_l, out_l = fn(query[live], payload[live], lanes[live], *rest, chunk=chunk)
+    d2 = torch.full((B, nq), float("inf"), dtype=d2_l.dtype, device=query.device)
+    out = torch.zeros((B, *out_l.shape[1:]), dtype=out_l.dtype, device=query.device)
+    d2[live], out[live] = d2_l, out_l
+    return d2, out
+
+
 def nn_index_batched_plain(
     query: torch.Tensor,
     payload: torch.Tensor,
@@ -376,8 +402,12 @@ def nn_index_batched_plain(
     query [B, Nq, 3]; payload [B, P, Nt] (rows 0-2 target xyz, the only
     rows read); active [B]. Returns (d2 [B, Nq], index [B, Nq] int32): d2
     is K1's (bit-equal), index the lowest target index at exactly that d2;
-    inactive lanes, and queries no target beats, give (inf, 0).
+    inactive lanes, and queries no target beats, give (inf, 0). Only the
+    active lanes are walked.
     """
+    some = _active_lanes_only(nn_index_batched_plain, query, payload, active, chunk)
+    if some is not None:
+        return some
     qx, qy, qz = (query[:, :, c, None] for c in range(3))   # [B, Nq, 1]
     best, arg = _argmin_walk(
         query, payload, chunk, lambda t: _exact_d2(qx, qy, qz, t)
@@ -405,10 +435,13 @@ def nn_select_batched_plain(
     is bit-equal to the kernel's); sel is, for ``variant="mineq"``, the
     payload averaged over every target at exactly that d2, for
     ``"argmin"`` the lowest-index such target's column (exact). Inactive
-    lanes give (inf, 0). The target axis is walked in chunks so
-    [B, Nq, Nt] never exists whole.
+    lanes give (inf, 0), and only the active lanes are walked. The target
+    axis is walked in chunks so [B, Nq, Nt] never exists whole.
     """
     _require(variant in VARIANTS, f"variant must be one of {VARIANTS}, got {variant!r}")
+    some = _active_lanes_only(nn_select_batched_plain, query, payload, active, chunk, variant)
+    if some is not None:
+        return some
     if variant == "argmin":
         d2, idx = nn_index_batched_plain(query, payload, active, chunk)
         return d2, _gather_columns(payload, idx.long(), torch.isfinite(d2))
@@ -787,14 +820,25 @@ class K2Geometry(NamedTuple):
 # chunks, so about a wave of blocks of 2,048 points or more beats filling
 # the card with short ones (PERF.md)
 K2_SPLIT = (512, 2048, 128)
+# an image past the default 48 KB of shared memory a block (LiDAR-Iris's
+# 28,800 bins): its clear and flush cost more than a short chunk's scan,
+# so the blocks are larger and the chunks at least K2_PTS_PER_BIN points
+# a bin (scripts/torch_k2_k6_sweep.py's Iris shapes; PERF.md)
+K2_SPLIT_LARGE = (1024, 2048, 128)
+K2_PTS_PER_BIN = 0.5
 
 
-def k2_geometry(B: int, n: int, split=K2_SPLIT) -> K2Geometry:
-    """K2's launch geometry for B frames of n points: enough chunks a frame
-    that the grid reaches the blocks aimed for, none shorter than the
-    fewest points a block (but for a frame shorter than that), of equal
-    length up to a multiple of 4."""
+def k2_geometry(B: int, n: int, split=None, bins: int = 0) -> K2Geometry:
+    """K2's launch geometry for B frames of n points into images of
+    ``bins`` bins: enough chunks a frame that the grid reaches the blocks
+    aimed for, none shorter than the fewest points a block (the split's,
+    or ``K2_PTS_PER_BIN`` a bin where that is more; but for a frame shorter
+    than that), of equal length up to a multiple of 4. The split defaults
+    to ``K2_SPLIT``, or ``K2_SPLIT_LARGE`` for an image past 48 KB."""
+    if split is None:
+        split = K2_SPLIT_LARGE if 4 * bins > 48 * 1024 else K2_SPLIT
     threads, min_pts, want = split
+    min_pts = max(min_pts, int(K2_PTS_PER_BIN * bins))
     chunks = max(1, min(-(-want // max(B, 1)), n // min_pts))
     per = -(-n // chunks)
     chunk_len = max(4, -(-per // 4) * 4)
@@ -859,7 +903,10 @@ def max_image(
     if values.device.type == "cpu":
         return max_image_plain(values, ring, sector, valid, num_rings, num_sectors)
     _require(values.device.type == "cuda", f"unsupported device {values.device}")
-    _require(num_rings * num_sectors <= 4096, "the kernel holds at most 4096 bins")
+    limit = max_image_max_bins(values.device)
+    _require(num_rings * num_sectors <= limit,
+             f"the kernel holds at most {limit} bins on {values.device} (its shared "
+             f"memory a block), got {num_rings} x {num_sectors}")
     _require(
         all(x.is_contiguous() for x in (values, ring, sector, valid)),
         "inputs must be contiguous",
@@ -873,12 +920,27 @@ def max_image(
     return _launch_max_image(values, ring, sector, valid, num_rings, num_sectors)
 
 
+_MAX_BINS: dict = {}
+
+
+def max_image_max_bins(device: torch.device) -> int:
+    """The most bins K2's image may have on a CUDA device: its opt-in
+    shared memory a block over 4 bytes a bin (~58,000 on an H100)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _MAX_BINS:
+        n = load_library().scl_max_image_max_bins(index)
+        if n <= 0:
+            raise RuntimeError(f"cannot read the shared memory a block of cuda:{index}")
+        _MAX_BINS[index] = n
+    return _MAX_BINS[index]
+
+
 def _launch_max_image(values, ring, sector, valid, num_rings, num_sectors, geom=None):
     """K2's launch on checked CUDA inputs (B > 0), at ``geom`` (default
-    :func:`k2_geometry`)."""
+    :func:`k2_geometry` for the image's bins)."""
     B, n = values.shape
     dev = values.device
-    g = geom or k2_geometry(B, n)
+    g = geom or k2_geometry(B, n, bins=num_rings * num_sectors)
     out = torch.empty((B, num_rings, num_sectors), dtype=torch.float32, device=dev)
     vec = _vector_ok(n, (values, ring, sector), (valid,))
     lib = load_library()
@@ -906,13 +968,14 @@ def nn_select_plain(
     bit-equal to the kernel's), clamped at 0; sel is the payload column of
     the lowest target index at exactly that d2. A query that no target
     beats (no target, or only NaN distances) gives (inf, 0). The target
-    axis is walked in chunks so [Nq, Nt] never exists whole: the first
-    minimum within a chunk, a strict < across chunks.
+    axis is walked in chunks (:func:`_default_chunk`) so [Nq, Nt] never
+    exists whole: the first minimum within a chunk, a strict < across
+    chunks.
     """
     nq = query.shape[0]
     P, nt = payload.shape
     if chunk is None:
-        chunk = max(1, min(nt, (1 << 24) // max(1, nq)))
+        chunk = _default_chunk(1, nq, nt, query.device)
     dtype, dev = query.dtype, query.device
     best = torch.full((nq,), float("inf"), dtype=dtype, device=dev)
     if nt == 0:
@@ -920,13 +983,8 @@ def nn_select_plain(
     qx, qy, qz = (query[:, c, None] for c in range(3))       # [Nq, 1]
     arg = torch.zeros((nq,), dtype=torch.int64, device=dev)
     for c0 in range(0, nt, chunk):
-        t = payload[:3, c0 : c0 + chunk]                       # [3, C]
-        dx = qx - t[None, 0]
-        dy = qy - t[None, 1]
-        dz = qz - t[None, 2]
-        d2 = dx * dx
-        d2 = d2 + dy * dy
-        d2 = d2 + dz * dz                                      # [Nq, C]
+        t = payload[None, :3, c0 : c0 + chunk]                 # [1, 3, C]
+        d2 = _exact_d2(qx, qy, qz, t)[0]                       # [Nq, C]
         d2 = torch.where(torch.isnan(d2), float("inf"), d2)
         cmin, carg = torch.min(d2, dim=-1)   # first minimum on ties
         take = cmin < best
@@ -1006,19 +1064,14 @@ def nearest_neighbors_plain(
     """
     nq, nt = query.shape[0], target.shape[0]
     if chunk is None:
-        chunk = max(1, min(nt, (1 << 24) // max(1, nq)))
+        chunk = _default_chunk(1, nq, nt, query.device)
     dtype, dev = query.dtype, query.device
     best = torch.full((nq,), float("inf"), dtype=dtype, device=dev)
     arg = torch.zeros((nq,), dtype=torch.int64, device=dev)
     qx, qy, qz = (query[:, c, None] for c in range(3))       # [Nq, 1]
     for c0 in range(0, nt, chunk):
-        t = target[c0 : c0 + chunk]                            # [C, 3]
-        dx = qx - t[None, :, 0]
-        dy = qy - t[None, :, 1]
-        dz = qz - t[None, :, 2]
-        d2 = dx * dx
-        d2 = d2 + dy * dy
-        d2 = d2 + dz * dz                                      # [Nq, C]
+        t = target[c0 : c0 + chunk].T[None]                    # [1, 3, C]
+        d2 = _exact_d2(qx, qy, qz, t)[0]                       # [Nq, C]
         d2 = torch.where(torch.isnan(d2), float("inf"), d2)
         cmin, carg = torch.min(d2, dim=-1)   # first minimum on ties
         take = cmin < best

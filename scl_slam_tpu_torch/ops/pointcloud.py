@@ -5,7 +5,9 @@ Clouds are fixed-capacity ``[..., N, 3]`` tensors with a validity mask;
 every function here takes leading batch dimensions, which replaces the JAX
 package's ``vmap`` over frames, except ``voxel_downsample`` and
 ``voxel_downsample_hash`` (one cloud each; the mapper walks the frames).
-``estimate_normals`` is not ported yet (ROADMAP queue 1).
+``estimate_normals`` walks the frames itself, and its brute-force k-NN
+(``knn_indices``) walks the queries in chunks, so no [N, N] (or [B, N, N])
+distance matrix is ever built.
 """
 from __future__ import annotations
 
@@ -262,3 +264,85 @@ def scatter_max_image(
         num_sectors,
     )
     return img.reshape(*lead, num_rings, num_sectors)
+
+
+# distances a chunk of knn_indices' queries holds at a time, by device: on
+# the card 256 MiB of f32, on the CPU a chunk that stays near the caches
+_KNN_BUDGET = {"cuda": 2**26, "cpu": 2**22}
+
+
+def knn_indices(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """The k nearest of points [N, 3] to each of them (itself included):
+    [N, k] int64, in ascending squared distance, ties by the lower index.
+
+    Brute force in chunks of queries, at most ``_KNN_BUDGET`` distances at
+    a time. The squared distance is taken per
+    coordinate, ((dx dx + dy dy) + dz dz); the JAX package ranks by the
+    expanded form |q|^2 - 2 q.x + |x|^2, whose rounding can reorder
+    near-ties at the k-th neighbour. The k kept are in :func:`smallest_k`'s
+    order; which of several points tied at the k-th distance is kept is not
+    specified (the padded points of a cloud all sit at PAD_VALUE, so those
+    ties are between equal points).
+    """
+    n = xyz.shape[0]
+    rows = max(1, _KNN_BUDGET[xyz.device.type] // max(n, 1))
+    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    out = []
+    for q0 in range(0, n, rows):
+        q = xyz[q0 : q0 + rows]
+        d = q[:, 0:1] - x
+        d2 = d * d
+        d = q[:, 1:2] - y
+        d2 += d * d
+        d = q[:, 2:3] - z
+        d2 += d * d
+        out.append(smallest_k(d2, k))
+    return torch.cat(out) if out else torch.zeros((0, k), dtype=torch.int64, device=xyz.device)
+
+
+def smallest_k(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k smallest values along the last axis of d2, in
+    ascending order, ties by the lower index (``lax.top_k`` of -d2) among
+    the k kept; which of several values tied at the k-th is kept is
+    ``torch.topk``'s choice."""
+    vals, idx = torch.topk(d2, k, dim=-1, largest=False, sorted=True)
+    idx, perm = torch.sort(idx, dim=-1)
+    _, order = torch.sort(torch.gather(vals, -1, perm), dim=-1, stable=True)
+    return torch.gather(idx, -1, order)
+
+
+_EIGH_BATCH = 1 << 14
+
+
+def covariance_normals(nbrs: torch.Tensor) -> torch.Tensor:
+    """The smallest eigenvector of each neighbourhood's covariance: nbrs
+    [..., k, 3] -> [..., 3] unit vectors, with the sign the eigensolver
+    gives."""
+    k = nbrs.shape[-2]
+    centered = nbrs - nbrs.mean(dim=-2, keepdim=True)
+    cov = torch.einsum("...ki,...kj->...ij", centered, centered) / k
+    flat = cov.reshape(-1, 3, 3)
+    # cuSOLVER's batched eigensolver refuses a batch of 131,072 matrices
+    # (CUSOLVER_STATUS_INVALID_VALUE on an H100): _EIGH_BATCH a call
+    vecs = torch.cat([torch.linalg.eigh(c).eigenvectors[..., 0]  # eigenvalues ascending
+                      for c in flat.split(_EIGH_BATCH)]) if flat.shape[0] else flat[:, 0]
+    return vecs.reshape(*cov.shape[:-2], 3)
+
+
+def estimate_normals(cloud: Cloud, k: int = 16) -> torch.Tensor:
+    """Per-point normals [..., N, 3] of clouds [..., N, 3]: the smallest
+    eigenvector of the covariance of each point's k nearest neighbours
+    (invalid points sit at PAD_VALUE), turned towards the viewpoint at the
+    origin; zeros for invalid points. Plain torch (the JAX package computes
+    it in XLA, outside any Pallas kernel)."""
+    lead, n = cloud.xyz.shape[:-2], cloud.xyz.shape[-2]
+    outs = []
+    for xyz, mask in zip(cloud.xyz.reshape(-1, n, 3), cloud.mask.reshape(-1, n)):
+        pts = torch.where(mask[:, None], xyz, PAD_VALUE)
+        normal = covariance_normals(pts[knn_indices(pts, k)])
+        flip = torch.sum(normal * (-pts), dim=-1) < 0
+        normal = torch.where(flip[:, None], -normal, normal)
+        outs.append(torch.where(mask[:, None], normal, 0.0))
+    if not outs:
+        return torch.zeros_like(cloud.xyz)
+    return torch.stack(outs).reshape(*lead, n, 3)

@@ -259,6 +259,11 @@ def _run_tcp(args) -> int:
         # the workers' kernel launches, summed (what their last processes
         # launched: a respawned worker counts from its resume)
         "launches": {k: sum(rp["launches"][k] for rp in reps) for k in reps[0]["launches"]},
+        # per robot: drains whose solve broke down (their stages) and the
+        # inter-robot path's outcomes
+        "broken_drains": [rp["broken_drains"] for rp in reps],
+        "solve_breakdowns": [rp["solve_breakdowns"] for rp in reps],
+        "inter_log": [rp["inter_log"] for rp in reps],
     }
     print(json.dumps(report))
     return 0

@@ -154,6 +154,11 @@ def main(argv=None):
         # this process's kernel launches (since its start: a respawned
         # worker's count begins at its resume)
         "launches": dict(kernels.LAUNCHES),
+        # the port's own diagnostics: drains whose solve broke down, and
+        # the inter-robot path's outcomes (Mapper.inter_log)
+        "broken_drains": mapper.broken_drains,
+        "solve_breakdowns": mapper.solve_breakdowns,
+        "inter_log": dict(mapper.inter_log, send_failures=bus.send_failures),
     }
     if r == 0:
         os.makedirs(args.output, exist_ok=True)

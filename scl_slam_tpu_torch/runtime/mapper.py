@@ -4,8 +4,9 @@ drain with the pose-graph solve.
 
 Live, per keyframe (``Mapper.add_frame`` + ``Mapper.spin_once``):
 
-0. storage downsample + Scan Context build (kernel K2 on CUDA) of the raw
-   scan, and single-frame ingest into the fixed-capacity state;
+0. storage downsample + descriptor build of the raw scan (the family
+   ``descriptor_type`` names; Scan Context and LiDAR-Iris on kernel K2 on
+   CUDA), and single-frame ingest into the fixed-capacity state;
 1. intra retrieval for the new keyframe (``_retrieve_intra``);
 2. on a descriptor hit (a host branch, where JAX has ``lax.cond``): submap
    gather and solo coarse-to-fine ICP (kernel K4 in every iteration);
@@ -502,13 +503,22 @@ def _drain_queue(state: MapperState, cfg: SlamConfig):
     return graph, n_new, new_queue
 
 
+def _solved(poses: se3.Pose, chi2_history: torch.Tensor) -> torch.Tensor:
+    """0-d bool: a solve ended finite (its final chi2 and every pose)."""
+    return (torch.isfinite(chi2_history[-1]) & torch.isfinite(poses.R).all()
+            & torch.isfinite(poses.t).all())
+
+
 def _drain_queue_and_optimize(state: MapperState, cfg: SlamConfig):
     """Drain the loop queue into the factor graph, then solve (one device).
 
     Solves only when the drain added loop factors (a host branch). GN runs
     from two starts, the current estimate and a chordal rotation init, and
-    the lower final chi2 wins. Returns (state, chi2_history
-    [gn_iters + 1]; zeros when nothing was solved).
+    the lower final chi2 of a finite solve wins. Returns (state,
+    chi2_history [gn_iters + 1]; zeros when nothing was solved, broken
+    [2] int32: per start (warm, chordal) 0 where its solve ended finite or
+    did not run, else its ``SolveResult.breakdown`` code, -1 where no step
+    flagged the breakdown).
     """
     graph, n_new, new_queue = _drain_queue(state, cfg)
     poses = se3.Pose(state.opt_R, state.opt_t)
@@ -521,17 +531,31 @@ def _drain_queue_and_optimize(state: MapperState, cfg: SlamConfig):
                 damping=o.damping, huber_delta=o.huber_delta,
                 coarse_stride=o.coarse_stride, coarse_levels=o.coarse_levels,
             )
-            return r.poses, r.chi2_history
+            return r.poses, r.chi2_history, r.breakdown
 
-        warm_poses, warm_chi = run(poses)
-        staged_poses, staged_chi = run(chordal_rotation_init(graph, poses))
-        use_staged = staged_chi[-1] < warm_chi[-1]
-        opt_R = torch.where(use_staged, staged_poses.R, warm_poses.R)
-        opt_t = torch.where(use_staged, staged_poses.t, warm_poses.t)
+        warm_poses, warm_chi, warm_code = run(poses)
+        staged_poses, staged_chi, staged_code = run(chordal_rotation_init(graph, poses))
+        # a start whose solve broke down (a non-finite chi2 or pose) never
+        # replaces the estimate: the other start is kept, or, where both
+        # broke down, the estimate from before the drain (the new factors
+        # stay in the graph for the next solve). The JAX module keeps the
+        # warm start there, which a NaN then takes over.
+        warm_ok, staged_ok = _solved(warm_poses, warm_chi), _solved(staged_poses, staged_chi)
+        use_staged = staged_ok & (~warm_ok | (staged_chi[-1] < warm_chi[-1]))
+        neither = ~(warm_ok | staged_ok)
+        opt_R = torch.where(neither, poses.R,
+                            torch.where(use_staged, staged_poses.R, warm_poses.R))
+        opt_t = torch.where(neither, poses.t,
+                            torch.where(use_staged, staged_poses.t, warm_poses.t))
         chi2_history = torch.where(use_staged, staged_chi, warm_chi)
+        broken = torch.stack([
+            torch.where(ok, 0, torch.where(code != 0, code, -1)).to(torch.int32)
+            for ok, code in ((warm_ok, warm_code), (staged_ok, staged_code))
+        ])
     else:
         opt_R, opt_t = poses.R, poses.t
         chi2_history = poses.t.new_zeros((o.gn_iters + 1,))
+        broken = torch.zeros((2,), dtype=torch.int32, device=poses.t.device)
     state = state._replace(
         graph=graph,
         opt_R=opt_R,
@@ -539,7 +563,7 @@ def _drain_queue_and_optimize(state: MapperState, cfg: SlamConfig):
         loop_queue=new_queue,
         loop_closed=torch.zeros_like(state.loop_closed),
     )
-    return state, chi2_history
+    return state, chi2_history, broken
 
 
 def _batch_body(
@@ -843,6 +867,16 @@ class Mapper:
         self._pending_intra = None
         self._pending_intra_valid = False
         self.icp_attempts = 0  # live-path ICP verifications run so far
+        # drains where a start's solve ended non-finite (the drain then kept
+        # the other start or the estimate from before it), and each such
+        # start with the step and stage where it broke down
+        self.broken_drains = 0
+        self.solve_breakdowns: list[str] = []
+        # the inter-robot path's outcomes: own queries run, candidates found,
+        # verification RPCs that failed, verifications refused by the peer,
+        # loops queued; peer descriptors dropped as out of order
+        self.inter_log = dict.fromkeys(
+            ("queries", "found", "rpc_failed", "rejected", "verified", "peer_dropped"), 0)
         self._state_lock = threading.RLock()
         self._write_lock = threading.Lock()
         # factors verified for peers on the bus thread, queued into the
@@ -1135,7 +1169,14 @@ class Mapper:
         chi2 history (zeros when no loop factor was added)."""
         self._drain_server_loops()
         with self._write_lock:
-            self.state, chi2_hist = _drain_queue_and_optimize(self.state, self.cfg)
+            self.state, chi2_hist, broken = _drain_queue_and_optimize(self.state, self.cfg)
+        broken = to_numpy(broken)
+        if broken.any():
+            self.broken_drains += 1
+            self.solve_breakdowns += [
+                f"{start}: " + (solver.breakdown_stages(c) if c > 0 else "no step flagged")
+                for start, c in zip(("warm", "chordal"), broken.tolist()) if c != 0
+            ]
         return to_numpy(chi2_hist)
 
     def attach_mesh(self, mesh, axis: str = "shard") -> None:
@@ -1176,6 +1217,7 @@ class Mapper:
         wire a flat float vector). Returns False when the descriptor is
         dropped as out of order. A full peer block is compacted first."""
         if index != self.next_index(robot):
+            self.inter_log["peer_dropped"] += 1
             return False
         self._ensure_capacity(1, robot)
         dev = self.device
@@ -1247,9 +1289,11 @@ class Mapper:
         ):
             return None
         self._inter_dirty = False
+        self.inter_log["queries"] += 1
         found, match, cloud_xyz, cloud_mask = _detect_inter(self.state, self.robot, self.cfg)
         if not bool(found):
             return None
+        self.inter_log["found"] += 1
         from .transport import _DECODE_ERRORS, VerifyRequest
 
         robot_pre, index_pre = int(match.robot), int(match.index)
@@ -1268,10 +1312,13 @@ class Mapper:
             # a peer down or a malformed reply: a missed verification, not
             # an error; retried on the next spin
             self._inter_dirty = True
+            self.inter_log["rpc_failed"] += 1
             return None
         if not resp.success:
             self._inter_dirty = True
+            self.inter_log["rejected"] += 1
             return None
+        self.inter_log["verified"] += 1
         with self._write_lock:
             self.state = _queue_loop(
                 self.state, encode_kf(robot_pre, index_pre), encode_kf(self.robot, idx_cur),

@@ -241,6 +241,7 @@ class TcpBus:
         # message follows queue-50 droppability semantics.
         self._desc_conns: dict[int, socket.socket] = {}
         self._desc_lock = threading.Lock()
+        self.send_failures = 0  # broadcasts dropped on a send error
 
     def register(self, robot: int, on_descriptor, on_verify):
         assert robot == self.robot
@@ -289,6 +290,7 @@ class TcpBus:
                 except OSError:
                     # peer down: drop (queue-50 semantics) and reset the
                     # stream so the next broadcast redials
+                    self.send_failures += 1
                     dead = self._desc_conns.pop(robot, None)
                     if dead is not None:
                         try:

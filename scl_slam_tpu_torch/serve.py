@@ -17,7 +17,8 @@ Protocol (request, response) pairs:
 - ``("save", {"directory": str})`` -> ``{"ok": True}`` (TUM and KITTI
   trajectories, ``global_map.ply``, keyposes PCD, ``loop_constraints.json``)
 - ``("stats", {})`` -> counters (and, in the port, the process's kernel
-  launches under ``launches``)
+  launches under ``launches``, and the drains whose solve broke down under
+  ``broken_drains`` and ``solve_breakdowns``)
 - ``("shutdown", {})`` -> stops the server
 
     python -m scl_slam_tpu_torch.serve --port 7450 [--config cfg.yaml] [--device cpu]
@@ -96,8 +97,12 @@ class SlamServer:
                     "frames": self._frames,
                     "keyframes": int(self.mapper.state.counts[self.mapper.robot]),
                     "loops": self._loops,
-                    # the port's own: this process's kernel launches
+                    # the port's own: this process's kernel launches, and
+                    # the drains whose solve broke down with their stages
+                    # ("; "-joined: the frame codec carries strings)
                     "launches": dict(kernels.LAUNCHES),
+                    "broken_drains": self.mapper.broken_drains,
+                    "solve_breakdowns": "; ".join(self.mapper.solve_breakdowns),
                 }
         if kind == "shutdown":
             self._stop.set()

@@ -18,7 +18,8 @@ against the plain version on the same inputs (the image bit-equal, the
 counts equal). K2's grid: threads a block, fewest points a block and
 blocks aimed for, at
 the one-frame shapes on dense_world scans and on bench.py's random scans
-(every bin hit). K6's: threads a block, blocks aimed for and most
+(every bin hit), and at LiDAR-Iris's 80 x 360 bins (chip_smoke.py's phase
+31 inputs: one frame's 9 channels and a 32-frame batch's 288). K6's: threads a block, blocks aimed for and most
 hypotheses a block. Prints one line per
 (kernel, shape, geometry), then per shape the five fastest and the
 default geometry (``kernels.k2_geometry`` / ``k6_geometry``). ``--quick``
@@ -98,6 +99,19 @@ def main() -> int:
             ref = K.max_image_plain(*a)
             geoms = set() if args.quick else {K.k2_geometry(B, n, c) for c in grid}
             sweep(f"K2 {label} {B}x{n}", geoms, K.k2_geometry(B, n),
+                  lambda g, a=a: K._launch_max_image(*a, geom=g),
+                  lambda img, ref=ref: torch.equal(img, ref), lambda g, B=B: B * g.chunks)
+        # LiDAR-Iris's 80 x 360 bins: one frame's 9 channels and a 32-frame
+        # replay batch's 288, with longer chunks in the grid (the clear and
+        # the flush of 28,800 bins)
+        grid = list(itertools.product((256, 512, 1024), (2048, 8192, 14400, 32768, 65536, 131072),
+                                      (132, 264)))
+        for label, frames in (("iris_live", 1), ("iris_replay", 32)):
+            a = cs.iris_k2_inputs(torch, frames, 131072)
+            B, n = a[0].shape
+            ref = K.max_image_plain(*a)
+            geoms = set() if args.quick else {K.k2_geometry(B, n, c) for c in grid}
+            sweep(f"K2 {label} {B}x{n} 80x360", geoms, K.k2_geometry(B, n, bins=80 * 360),
                   lambda g, a=a: K._launch_max_image(*a, geom=g),
                   lambda img, ref=ref: torch.equal(img, ref), lambda g, B=B: B * g.chunks)
 

@@ -302,9 +302,11 @@ def offset_rows(x, device):
 
 
 # (B, N, rings, sectors): live-kitti, the demo, the replay bench's lane
-# count, ragged N (the scalar loop), 64 x 64 = 4,096 bins
+# count, ragged N (the scalar loop), 64 x 64 = 4,096 bins, LiDAR-Iris's
+# 80 x 360 = 28,800 (past the default 48 KB of shared memory a block)
 K2_CUDA_SHAPES = ((1, 131072, 20, 60), (1, 32768, 20, 60), (4, 65536, 20, 60),
-                  (3, 65537, 20, 60), (2, 3, 20, 60), (1, 1, 20, 60), (4, 4100, 64, 64))
+                  (3, 65537, 20, 60), (2, 3, 20, 60), (1, 1, 20, 60), (4, 4100, 64, 64),
+                  (9, 131072, 80, 360), (3, 65537, 80, 360))
 
 
 @pytest.mark.cuda

@@ -174,8 +174,11 @@ def test_gate_and_unported_paths_raise():
     # first; it used to raise
     m._ensure_queue_headroom(cfg.loop.queue_capacity + 1)
     assert int(m.state.loop_queue.count) == 0
-    with pytest.raises(NotImplementedError):
-        M.Mapper(tconfig.SlamConfig(descriptor_type=tconfig.DescriptorType.M2DP), "cpu")
+    # every descriptor family is ported: an M2DP Mapper is built and
+    # ingests a frame
+    m2dp = M.Mapper(dataclasses.replace(cfg, descriptor_type=tconfig.DescriptorType.M2DP), "cpu")
+    assert m2dp.add_frame(poses[0], scans[0]) is not None
+    assert int(m2dp.state.desc_db.count) == 1 and m2dp.state.desc_db.keys.shape[1] == 192
     # the voxel storage modes are ported: they downsample to the storage width
     vox_cfg = tconfig.SlamConfig(keyframe=tconfig.KeyframeConfig(
         storage_downsample="voxel", points_per_keyframe=256, descript_leaf_size=0.5))

@@ -210,8 +210,61 @@ def test_solve_matches_jax(problem, coarse_stride):
         assert float(got.delta_norms[-1]) < 1e-4
     assert float(got.chi2_history[-1]) < 1e-2 * float(got.chi2_history[0])
     assert got.cg_residuals.shape == got.delta_norms.shape == (6,)
+    assert int(got.breakdown) == 0  # no step broke down
     if coarse_stride == 0:  # the empty slots stay where they were
         np.testing.assert_array_equal(got.poses.t.numpy()[N_POSES:], tp.t.numpy()[N_POSES:])
+
+
+@pytest.mark.parametrize("coarse_stride", [0, 8])
+def test_pcg_stops_where_the_preconditioner_turns_indefinite(problem, coarse_stride,
+                                                             monkeypatch):
+    """A preconditioner that is not positive on the residual (r.z <= 0, as
+    the f32 coarse term turned on the card at 4,096 poses) stops PCG at its
+    last iterate instead of stepping by beta ~1e30 into a non-finite
+    update: here every block-Jacobi block is negated, so r.z < 0 from the
+    first step (with the coarse level, from the first step after it), the
+    solve ends finite, and its breakdown code names the step and r.z."""
+    _, _, g, tp = problem
+    cho_inverse = S._cho_inverse
+    monkeypatch.setattr(S, "_cho_inverse", lambda L: -cho_inverse(L))
+    got = S.solve(g, tp, gn_iters=3, cg_iters=16, coarse_stride=coarse_stride)
+    assert torch.isfinite(got.chi2_history).all()
+    assert torch.isfinite(got.poses.t).all() and torch.isfinite(got.poses.R).all()
+    assert S.breakdown_stages(got.breakdown).startswith("GN step 0: ")
+    assert "r.z <= 0" in S.breakdown_stages(got.breakdown)
+    if coarse_stride == 0:  # stopped before its first step: nothing moved
+        assert torch.equal(got.poses.t, tp.t)
+
+
+def test_pcg_stop_holds_when_r_z_comes_back_positive(problem, monkeypatch):
+    """On the card the preconditioner's scatter-sums differ by rounding
+    from call to call, so r.z recomputed after a stop can come back just
+    above 0: PCG must then restart from p = z, not step by r.z / 1e-30.
+    Here the block-Jacobi preconditioner is negated on its second call of
+    each Gauss-Newton step only (r.z < 0 once, then > 0 again)."""
+    _, _, g, tp = problem
+    cho_inverse, mv, blocks, calls = S._cho_inverse, S._mv, [], []
+
+    def recording(L):
+        blocks.append(cho_inverse(L))
+        calls.clear()
+        return blocks[-1]
+
+    def flipping(A, x):
+        y = mv(A, x)
+        if blocks and A is blocks[-1]:
+            calls.append(1)
+            if len(calls) == 2:
+                return -y
+        return y
+
+    monkeypatch.setattr(S, "_cho_inverse", recording)
+    monkeypatch.setattr(S, "_mv", flipping)
+    got = S.solve(g, tp, gn_iters=3, cg_iters=16)
+    assert "r.z <= 0" in S.breakdown_stages(got.breakdown)
+    assert torch.isfinite(got.poses.t).all() and torch.isfinite(got.chi2_history).all()
+    # the restarted PCG still solves: the chi2 falls as without the flip
+    assert float(got.chi2_history[-1]) < 1e-2 * float(got.chi2_history[0])
 
 
 def test_chordal_rotation_init_and_two_stage_match_jax(problem):

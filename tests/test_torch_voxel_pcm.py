@@ -211,9 +211,51 @@ def test_drain_with_pcm_matches_jax(use_pcm):
     # through the drain and solve: the outlier never reaches the graph
     state = state_from_numpy(state_to_numpy(jstate), "cpu")
     before = int(state.graph.num_edges)
-    state, chi2 = M._drain_queue_and_optimize(state, tc)
+    state, chi2, broken = M._drain_queue_and_optimize(state, tc)
     assert int(state.graph.num_edges) - before == (4 if use_pcm else 5)
-    assert np.isfinite(chi2.numpy()).all()
+    assert np.isfinite(chi2.numpy()).all() and broken.tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("broken", ["warm", "both", "measurement"])
+def test_drain_never_takes_a_broken_solve(broken, monkeypatch):
+    """A start whose solve ends non-finite (a Cholesky or PCG breakdown,
+    seen as a NaN trajectory on the card) never replaces the estimate: the
+    finite start wins, or the estimate from before the drain stays. The
+    Mapper counts the drain and names where each broken start broke down:
+    a start broken from outside the solver (``warm``, ``both``) is flagged
+    by no step; a NaN loop measurement breaks both starts in the linear
+    system of the first Gauss-Newton step."""
+    tc, jc = _drain_cfgs(False)
+    m = M.Mapper(tc, device="cpu")
+    m.state = state_from_numpy(state_to_numpy(_queued_jax_state(jc)), "cpu")
+    if broken == "measurement":
+        q = m.state.loop_queue
+        m.state = m.state._replace(loop_queue=q._replace(z_t=q.z_t.clone().index_fill_(
+            0, torch.tensor([0]), float("nan"))))
+    R0, t0 = m.state.opt_R.clone(), m.state.opt_t.clone()
+    solve, calls = M.solver.solve, []
+
+    def breaking(*a, **k):
+        r = solve(*a, **k)
+        calls.append(r)
+        if broken == "both" or (broken == "warm" and len(calls) == 1):  # warm runs first
+            r = r._replace(poses=se3.Pose(r.poses.R, torch.full_like(r.poses.t, float("nan"))))
+        return r
+
+    monkeypatch.setattr(M.solver, "solve", breaking)
+    chi2 = m.optimize()
+    assert len(calls) == 2 and m.broken_drains == 1
+    if broken == "warm":
+        assert torch.equal(m.state.opt_t, calls[1].poses.t) and np.isfinite(chi2).all()
+        assert m.solve_breakdowns == ["warm: no step flagged"]
+    else:
+        assert torch.equal(m.state.opt_R, R0) and torch.equal(m.state.opt_t, t0)
+    if broken == "both":
+        assert m.solve_breakdowns == ["warm: no step flagged", "chordal: no step flagged"]
+    if broken == "measurement":
+        assert [int(r.breakdown) for r in calls] != [0, 0]
+        assert all(s.split(": ", 1)[1].startswith("GN step 0: linear system")
+                   for s in m.solve_breakdowns) and len(m.solve_breakdowns) == 2
 
 
 CITYSCALE_SMALL = """\
