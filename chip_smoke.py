@@ -168,7 +168,8 @@ Phases (any failure raises, and the script exits non-zero):
    attempts and loop decisions, the trajectories within 1e-4 m (card) and
    1e-3 m (CPU), K2 and K4 launched by the resumed run;
 29. ``run_multi --robots 2 --transport tcp --respawn 2 --checkpoint-every
-   RESPAWN_CKPT_EVERY --crash-robot 0 --crash-after 12`` at its default 120
+   RESPAWN_CKPT_EVERY --crash-robot 0 --crash-after RESPAWN_CRASH_AFTER``
+   at its default 120
    frames: exit 0, ``respawn
    1/2`` on stderr, inter loops, both robots' ATE under 1 m, K2 and K3
    launched in the workers; printed beside phase 12's uncrashed run;
@@ -206,6 +207,28 @@ Phases (any failure raises, and the script exits non-zero):
    k-NN against the CPU's exact ranking on sampled rows, and each family's
    descriptor against the CPU's make fed that k-NN, within the stated
    tolerances.
+36. K4 at the point-to-plane odometry's shape (4,096 x 32,768, P = 8,
+   half the map PAD_VALUE rows, planted exact ties): d2 bit-equal, the
+   selection equal; alone and 20 to a graph, the plain time, the bound and
+   its share, the geometry and the split it took;
+37. the ICP odometry (``runtime/odometry.Odometry`` at its defaults) on
+   18 of the simulator's skewed sweeps at 1,800 azimuths
+   (tests/test_deskew.py's ATE recovery at full width): deskew "const"
+   beats "none" by 0.7 and lands under 0.6 m; ms a frame p50/p99, K4
+   launches a frame, one frame under torch.profiler; 8 frames on the CPU
+   and on the card, poses within ``FRONT_CROSS_ATOL``;
+38. ``ImuFusedOdometry`` (deskew "gyro", window 6, 32 samples) at full
+   width, its IMU exact under the preintegrator's scheme: from rest (5
+   m/s^2) the divergence gate never fires; ms a frame, the smoother's
+   solve ms; then on phase 37's 20 m/s sweeps, where the window's cold
+   start fires the gate on the first frames (as in the JAX package), the
+   output's ATE under 0.6 m;
+39. ``run --dataset synthetic --odometry icp`` and ``--odometry imu
+   --deskew gyro`` at the demo's defaults: exit 0, loops and ATE;
+40. the daemon with ``--odometry icp`` answering pose-less frames of the
+   simulator (a drive 1 m a frame) with finite poses, its ATE beside an in-process
+   ``Odometry`` + ``Mapper`` on the card (the same keyframes, the
+   trajectories within 1e-3 m).
 
 Kernel times are CUDA events around replays of a CUDA graph of the call
 (device time without the host's launch cost), beside the eager call's
@@ -216,7 +239,9 @@ its FP32 operations over 67 TFLOP/s (the H100 SXM data sheet at 700 W),
 counted from this run's shapes (9 operations a query-target pair for K1,
 K3, K4, K5, K7 and K8, 27 a hypothesis-point pair for K6, 13 bytes a
 point for K2). The line before the last is a JSON object
-with one entry per kernel (K1's, K2's and K6's also with ``graph20_ms``, the
+with one entry per kernel, K4 twice (at the live path's shape and, as
+``nn_select_odometry``, at the odometry's) (K1's, K2's, K6's and K4's at the
+odometry shape also with ``graph20_ms``, the
 time a launch of 20 to a graph, since their ``ms`` at the one-frame
 shapes reads the launch floor); the last line is ``{"ok": true,
 "device": {...}}``. This script imports nothing of JAX.
@@ -2343,9 +2368,10 @@ CITYSCALE_FRAMES = 60
 DEMO_CROSS_FRAMES = 40
 # phase 29's checkpoint cadence: a save at the default widths costs ~3 s
 # on the feed's critical path (~72 s of the run's ~110 s at every 5
-# frames); at every 10 the crash after frame 12 still resumes from the
-# checkpoint at frame 10, as at every 5
-RESPAWN_CKPT_EVERY = 10
+# frames, 81 s of the run at every 10); at every 20 the crash after frame
+# 25 resumes from the checkpoint at frame 20
+RESPAWN_CKPT_EVERY = 20
+RESPAWN_CRASH_AFTER = 25
 
 
 def anchor_world(n_azimuth: int, device):
@@ -3020,7 +3046,8 @@ def phase_checkpoint(torch, kernels, drive) -> dict:
 
 def phase_respawn(torch, tcp: dict) -> dict:
     """Phase 29: ``run_multi --robots 2 --transport tcp --respawn 2
-    --checkpoint-every RESPAWN_CKPT_EVERY --crash-robot 0 --crash-after 12``
+    --checkpoint-every RESPAWN_CKPT_EVERY --crash-robot 0 --crash-after
+    RESPAWN_CRASH_AFTER`` (the worker resumes from the frame-20 checkpoint)
     on the card at its default 120 frames: exit 0, one respawn on stderr, inter loops, both robots'
     ATE under 1 m (the JAX package's test bound), K2 and K3 launched."""
     import contextlib
@@ -3032,12 +3059,13 @@ def phase_respawn(torch, tcp: dict) -> dict:
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = run_multi.main(["--robots", "2", "--transport", "tcp", "--respawn", "2",
                              "--checkpoint-every", str(RESPAWN_CKPT_EVERY), "--crash-robot", "0",
-                             "--crash-after", "12",
+                             "--crash-after", str(RESPAWN_CRASH_AFTER),
                              "--output", os.path.join(ROOT, "chiprun_out", "run_multi_respawn")])
     lines = out.getvalue().strip().splitlines()
     rep = json.loads(lines[-1]) if rc == 0 and lines else {}
     log(f"[29] run_multi --robots 2 --transport tcp --respawn 2 --checkpoint-every "
-        f"{RESPAWN_CKPT_EVERY} --crash-robot 0 --crash-after 12 -> {json.dumps(rep)}")
+        f"{RESPAWN_CKPT_EVERY} --crash-robot 0 --crash-after {RESPAWN_CRASH_AFTER} -> "
+        f"{json.dumps(rep)}")
     ates = rep.get("ate_rmse_m", {})
     if (rc != 0 or "respawn 1/2" not in err.getvalue() or rep["respawns"] != 1
             or rep["inter_loops"] < 1 or set(ates) != {"a", "b"} or max(ates.values()) >= 1.0
@@ -3609,6 +3637,372 @@ def phase_vector_families(torch, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the front end's slice (phases 36-40)
+# ---------------------------------------------------------------------------
+
+# the skewed sweeps of tests/test_deskew.py's ATE recovery (2 m a frame
+# around a corner of UrbanScene(seed=4)), at the simulator's full 1,800
+# azimuths
+SWEEP_FRAMES = 18
+# ICP odometry on the CPU and on the card from the same scans: K4 is exact,
+# but the 6 x 6 normal equations sum in another order (cuBLAS against the
+# CPU's BLAS), so a pose moves by f32 roundings a frame, and a frame whose
+# update norm lands near tol = 1e-4 may take one more or one fewer
+# iteration (a tol-scale step): poses within 1e-3 m and 1e-3 over
+# FRONT_CROSS_FRAMES frames
+FRONT_CROSS_FRAMES = 8
+FRONT_CROSS_ATOL = 1e-3
+# phase 40's drive: frames 1 m apart through phase 37's scene
+SERVE_ODOM_FRAMES = 60
+
+
+def phase_k4_odometry(torch, kernels) -> dict:
+    """Phase 36: K4 at the point-to-plane odometry's shape, 4,096 scan
+    points against the 32,768-row map, P = 8 (xyz, validity, normal, pad),
+    the map's second half PAD_VALUE rows (a map still filling) and exact
+    ties planted as in phase 7: d2 bit-equal, the selection equal; the
+    time alone and 20 to a graph, the plain time, the bound and its share,
+    the launch geometry and which split it took."""
+    nq, nt, P = 4096, 32768, 8
+    q, payload, n_grid = k4_inputs(torch, nq, nt, P, seed=36)
+    payload[:3, 8192:24576] = 1e6
+    payload[3, 8192:24576] = 0.0
+    d, sel = kernels.nn_select(q, payload)
+    d_p, sel_p = kernels.nn_select_plain(q, payload)
+    torch.cuda.synchronize()
+    if not torch.equal(d, d_p) or not torch.equal(sel, sel_p):
+        raise AssertionError(f"K4 at the odometry shape: d2 differs in {(d != d_p).sum().item()}, "
+                             f"the selection in {(sel != sel_p).sum().item()} places")
+    on_grid = d[:n_grid] == 1.0
+    if int(on_grid.sum()) < 4 or not torch.equal(sel[0, :n_grid][on_grid], q[:n_grid, 0][on_grid] - 1.0):
+        raise AssertionError("K4 at the odometry shape: the planted ties did not take the lower index")
+    call_ms = time_cuda(torch, lambda: kernels.nn_select(q, payload), reps=50)
+    ms = time_graph(torch, lambda: kernels.nn_select(q, payload), reps=50)
+    many_ms = time_graph_many(torch, lambda: kernels.nn_select(q, payload))
+    plain_ms = time_graph(torch, lambda: kernels.nn_select_plain(q, payload), reps=5)
+    bound_ms, bound_by = bound(4 * (nq * 3 + P * nt + nq + P * nq), 9 * nq * nt)
+    split = "K4_SPLIT" if nq * nt >= kernels._K4_SMALL_PAIRS else "K4_SPLIT_SMALL"
+    log(f"[36] K4 {nq}x{nt} P={P}, half the map pads: d2 bit-equal, selection equal "
+        f"({int(on_grid.sum())} planted ties), kernel {ms:.4f} ms ({many_ms:.4f} ms 20 to a graph, "
+        f"eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), {100 * bound_ms / ms:.1f}% of it ({100 * bound_ms / many_ms:.1f}% 20 to a "
+        f"graph; issue ceiling 50%)")
+    log(f"[36]   geometry ({split} = {getattr(kernels, split)}): "
+        f"{split_geometry(torch, kernels.k4_geometry(nq, nt), 1, 1)}")
+    if bound_ms / ms < 0.25:
+        log(f"[36]   under a quarter of its bound at this shape (recorded; no redesign in this slice)")
+    return {"max_abs_err": float((sel - sel_p).abs().max().item()), "ms": ms, "many_ms": many_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def skewed_sweeps(device: str = "cuda"):
+    """(circuit [SWEEP_FRAMES] 4 x 4, scans): each scan swept from the last
+    pose to its own, rendered on ``device`` at 1,800 azimuths."""
+    from scl_slam_tpu_torch.io import lidar_sim
+
+    scene = lidar_sim.UrbanScene(seed=4)
+    sim = lidar_sim.LidarSim(scene, n_azimuth=1800, device=device)
+    circuit = scene.circuit(step=2.0)[:SWEEP_FRAMES]
+    return circuit, [sim.scan_at_skewed(circuit[max(k - 1, 0)], circuit[k], seed=100 + k)
+                     for k in range(SWEEP_FRAMES)]
+
+
+def drive_front_end(torch, step, circuit, scans, n=None):
+    """Step a front end (``step(k, scan) -> (pose, info)``) over the scans;
+    returns (position errors against the circuit in its first frame, ms a
+    frame with the card synchronized, poses as 4 x 4)."""
+    errs, ms, poses = [], [], []
+    for k, scan in enumerate(scans[:n]):
+        t = time.perf_counter()
+        pose = step(k, scan)
+        if pose.t.is_cuda:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = pose.R.cpu().numpy(), pose.t.cpu().numpy()
+        poses.append(T)
+        gt_rel = np.linalg.inv(circuit[0]) @ circuit[k]
+        errs.append(float(np.linalg.norm(T[:3, 3] - gt_rel[:3, 3])))
+    return np.array(errs), np.array(ms), np.stack(poses)
+
+
+def rms(x) -> float:
+    return float(np.sqrt(np.mean(np.square(x))))
+
+
+def phase_odometry(torch, kernels) -> dict:
+    """Phase 37: the ICP odometry at full width (``OdometryConfig``'s
+    defaults: map 32,768, scan 4,096, 12 iterations) on the simulator's
+    skewed sweeps, tests/test_deskew.py's ATE recovery: ``deskew="const"``
+    must beat ``"none"`` by the JAX test's factor 0.7 and land under its
+    0.6 m; ms a frame p50/p99 against the 100 ms sensor period, K4
+    launches a frame, one frame under torch.profiler (the device's busy
+    share; the table goes to chiprun_out/profile_odometry.txt); then the
+    first FRONT_CROSS_FRAMES frames on the CPU (plain versions) and on the
+    card from the same scans, poses within FRONT_CROSS_ATOL."""
+    from scl_slam_tpu_torch.runtime.odometry import Odometry, OdometryConfig
+
+    circuit, scans = skewed_sweeps()
+    res = {}
+    for deskew in ("none", "const"):
+        odo = Odometry(OdometryConfig(deskew=deskew))
+        kernels.reset_launch_counts()
+        errs, ms, _ = drive_front_end(torch, lambda k, s: odo.step(s)[0], circuit, scans)
+        res[deskew] = (rms(errs), ms, kernels.LAUNCHES["nn_select"])
+    (ate_raw, _, _), (ate_fix, ms, k4) = res["none"], res["const"]
+    pts = [len(s) for s in scans]
+    log(f"[37] ICP odometry at the defaults on {len(scans)} skewed sweeps of {min(pts)}-{max(pts)} "
+        f"points: ATE {ate_raw:.4f} m (deskew none), {ate_fix:.4f} m (const); const a frame p50 "
+        f"{np.percentile(ms, 50):.2f} ms, p99 {np.percentile(ms, 99):.2f} ms, max {ms.max():.2f} ms "
+        f"against the 100 ms sensor period (none p50 {np.percentile(res['none'][1], 50):.2f} ms); "
+        f"K4 {k4} launches, {k4 / len(scans):.2f} a frame")
+    if not (ate_fix < 0.7 * ate_raw and ate_fix < 0.6) or k4 < len(scans):
+        raise AssertionError(f"deskew did not recover the ATE ({ate_raw} -> {ate_fix}) or K4 "
+                             f"was not launched ({k4})")
+    profile_block(torch, "[37]", "one odometry frame (deskew const)",
+                  lambda: odo.step(scans[-1]), "profile_odometry.txt")
+
+    runs = {}
+    for device in ("cpu", "cuda"):
+        o = Odometry(OdometryConfig(deskew="const"), device=device)
+        t = time.perf_counter()
+        _, _, runs[device] = drive_front_end(torch, lambda k, s: o.step(s)[0], circuit, scans,
+                                             FRONT_CROSS_FRAMES)
+        runs[device + "_s"] = time.perf_counter() - t
+    dt = float(np.abs(runs["cpu"][:, :3, 3] - runs["cuda"][:, :3, 3]).max())
+    dR = float(np.abs(runs["cpu"][:, :3, :3] - runs["cuda"][:, :3, :3]).max())
+    if dt > FRONT_CROSS_ATOL or dR > FRONT_CROSS_ATOL:
+        raise AssertionError(f"odometry cpu/cuda: poses {dt} m, {dR} apart")
+    log(f"[37] {FRONT_CROSS_FRAMES} frames on the CPU ({runs['cpu_s']:.1f} s) and the card "
+        f"({runs['cuda_s']:.2f} s): poses within {dt:.2e} m, {dR:.2e} (bound {FRONT_CROSS_ATOL})")
+    return {"launches": k4, "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "circuit": circuit, "scans": scans}
+
+
+def _so3_exp(w):
+    th = np.linalg.norm(w)
+    K = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-12:
+        return np.eye(3) + K
+    return np.eye(3) + np.sin(th) / th * K + (1 - np.cos(th)) / th**2 * K @ K
+
+
+def _so3_log(R):
+    th = np.arccos(np.clip((np.trace(R) - 1) / 2, -1.0, 1.0))
+    u = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return 0.5 * u if th < 1e-9 else th / (2 * np.sin(th)) * u
+
+
+def consistent_imu(poses, m: int = 20, h: float = 0.005, g: float = 9.81):
+    """IMU samples for each interval of ``poses`` (4 x 4, one a frame) that
+    the preintegrator's Euler scheme integrates exactly through them, in the
+    manner of tests/test_imu_factor.py's simulate: a constant body rate an
+    interval; node velocities by central differences; a world acceleration
+    linear in the sample index that meets the next position and the next
+    velocity. Returns [(accel [m, 3], gyro [m, 3], dt [m])] f32."""
+    T = m * h
+    p = np.array([P[:3, 3] for P in poses])
+    v = np.empty_like(p)
+    v[0], v[-1] = (p[1] - p[0]) / T, (p[-1] - p[-2]) / T
+    v[1:-1] = (p[2:] - p[:-2]) / (2 * T)
+    G = np.array([0.0, 0.0, -g])
+    k = np.arange(m)
+    # v_m = v_0 + h sum a_k;  p_m = p_0 + T v_0 + h^2 sum a_k (m - k - 1/2)
+    A = np.array([[h * m, h * k.sum()],
+                  [h * h * np.sum(m - k - 0.5), h * h * np.sum(k * (m - k - 0.5))]])
+    out = []
+    for i in range(len(poses) - 1):
+        R = poses[i][:3, :3].copy()
+        w = _so3_log(R.T @ poses[i + 1][:3, :3]) / T
+        c = np.linalg.solve(A, np.stack([v[i + 1] - v[i], p[i + 1] - p[i] - T * v[i]]))
+        Rd, acc = _so3_exp(w * h), np.empty((m, 3))
+        for j in range(m):
+            acc[j] = R.T @ (c[0] + c[1] * j - G)
+            R = R @ Rd
+        out.append((acc.astype(np.float32), np.tile(w, (m, 1)).astype(np.float32),
+                    np.full(m, h, np.float32)))
+    return out
+
+
+# phase 38's start from rest: 5 m/s^2 along UrbanScene(seed=4)'s circuit
+FROM_REST_ACCEL = 5.0
+
+
+def from_rest_sweeps():
+    """(poses, scans): SWEEP_FRAMES frames 0.1 s apart of a start from rest
+    at FROM_REST_ACCEL along the skewed sweeps' circuit (7.2 m, the last
+    step 0.83 m), each scan swept from the last pose, 1,800 azimuths."""
+    from scl_slam_tpu_torch.io import lidar_sim
+
+    scene = lidar_sim.UrbanScene(seed=4)
+    sim = lidar_sim.LidarSim(scene, n_azimuth=1800)
+    fine = scene.circuit(step=0.05)
+    s = 0.5 * FROM_REST_ACCEL * (0.1 * np.arange(SWEEP_FRAMES)) ** 2
+    poses = [fine[int(round(x / 0.05))] for x in s]
+    return poses, [sim.scan_at_skewed(poses[max(k - 1, 0)], poses[k], seed=200 + k)
+                   for k in range(SWEEP_FRAMES)]
+
+
+def fused_run(torch, poses, scans):
+    """``ImuFusedOdometry(OdometryConfig(deskew="gyro"), window=6,
+    max_samples=32)``, the runner's imu mode, over ``scans`` with
+    :func:`consistent_imu` of ``poses``: (ATE, ms a frame, each frame's gap
+    to its ICP pose, the solves' ms, the front end)."""
+    from scl_slam_tpu_torch.runtime.odometry import ImuFusedOdometry, OdometryConfig
+
+    imu = consistent_imu(poses)
+    fused = ImuFusedOdometry(OdometryConfig(deskew="gyro"), window=6, max_samples=32)
+    acc_ms, gaps = {}, []
+    patched(fused.smoother, "solve", timing(torch, acc_ms, "solve"))
+
+    def step(k, scan):
+        if k == 0:
+            a = g = np.zeros((1, 3), np.float32)
+            dt = np.zeros(1, np.float32)
+        else:
+            a, g, dt = imu[k - 1]
+        pose, _, info = fused.step(scan, a, g, dt)
+        gaps.append(info.get("smooth_gap", 0.0))
+        return pose
+
+    errs, ms, _ = drive_front_end(torch, step, poses, scans)
+    return rms(errs), ms, np.array(gaps), np.array(acc_ms["solve"]), fused
+
+
+def phase_imu_odometry(torch, front: dict) -> None:
+    """Phase 38: the IMU-fused front end (``ImuFusedOdometry``, deskew
+    "gyro", window 6, 32 samples) at full width, its IMU exact under the
+    preintegrator's scheme (:func:`consistent_imu`). On a start from rest
+    (:func:`from_rest_sweeps`) the divergence gate must not fire; ms a
+    frame p50/p99 and the smoother's solve ms (a synchronize around each).
+    Then on phase 37's sweeps at a constant 20 m/s: there the window's
+    cold start (its unfilled nodes at rest) pulls the smoothed pose metres
+    from the ICP pose on the first frames, in the JAX package as well (on
+    the CPU at 360 azimuths its gate fires on frames 1-4, as the port's),
+    so the gate must keep the output's ATE under phase 37's 0.6 m; the
+    frames where it fired are printed."""
+    poses, scans = from_rest_sweeps()
+    ate, ms, gaps, solve, fused = fused_run(torch, poses, scans)
+    log(f"[38] ImuFusedOdometry (deskew gyro, window 6, 32 samples) from rest at "
+        f"{FROM_REST_ACCEL} m/s^2, {len(scans)} sweeps: ATE {ate:.4f} m, largest gap to the ICP "
+        f"pose {gaps.max():.4f} m (gate {fused.max_smooth_gap} m); a frame p50 "
+        f"{np.percentile(ms, 50):.2f} ms, p99 {np.percentile(ms, 99):.2f} ms; the smoother's "
+        f"solve ({len(solve)} solves of 4 GN steps) p50 {np.percentile(solve, 50):.2f} ms, p99 "
+        f"{np.percentile(solve, 99):.2f} ms; velocity at the end "
+        f"{np.round(fused.smoother.states.v[-1].cpu().numpy(), 3).tolist()}")
+    if gaps.max() > fused.max_smooth_gap or not np.isfinite(ate):
+        raise AssertionError(f"the divergence gate fired on clean data: gaps {gaps.tolist()}")
+    ate2, ms2, gaps2, _, _ = fused_run(torch, front["circuit"], front["scans"])
+    fired = [k for k, x in enumerate(gaps2) if x > fused.max_smooth_gap]
+    log(f"[38] the same on phase 37's 20 m/s sweeps: ATE {ate2:.4f} m, a frame p50 "
+        f"{np.percentile(ms2, 50):.2f} ms; the gate fired on frames {fired} (gaps "
+        f"{np.round(gaps2, 3).tolist()})")
+    if not ate2 < 0.6:
+        raise AssertionError(f"the fused front end at 20 m/s: ATE {ate2}")
+
+
+def phase_runner_front_ends(torch, kernels) -> None:
+    """Phase 39: ``python -m scl_slam_tpu_torch.run --dataset synthetic
+    --odometry icp`` and ``--odometry imu --deskew gyro`` at the demo's
+    defaults (120 frames of 32,768-point scans) on the card: exit 0, the
+    loops and the ATE printed."""
+    import contextlib
+    import io
+
+    from scl_slam_tpu_torch import run as R
+
+    for argv in (["--odometry", "icp"], ["--odometry", "imu", "--deskew", "gyro"]):
+        buf = io.StringIO()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = R.main(["--dataset", "synthetic", *argv, "--output",
+                         os.path.join(ROOT, "chiprun_out", "run_" + argv[1])])
+        report = json.loads(buf.getvalue().strip().splitlines()[-1]) if rc == 0 else {}
+        log(f"[39] run --dataset synthetic {' '.join(argv)} -> rc {rc}, {json.dumps(report)}; "
+            f"K4 {kernels.LAUNCHES['nn_select']}, K2 {kernels.LAUNCHES['max_image']} launches")
+        if rc != 0 or not np.isfinite(report["ate_rmse_m"]) or kernels.LAUNCHES["nn_select"] < 120:
+            raise AssertionError(f"run {argv}: rc {rc}, report {report}")
+
+
+def phase_serve_odometry(torch) -> None:
+    """Phase 40: the daemon with ``--odometry icp`` (``--config
+    configs/kitti_velodyne.yaml``) answers SERVE_ODOM_FRAMES pose-less
+    frames of the simulator at phase 30's 2,048 azimuths with finite
+    poses: a drive 1 m a frame through phase 37's scene, its scans
+    deskewed (phase 30's own lap turns 90 degrees between two frames,
+    which no constant-velocity prediction follows: ATE 21 m on it, the
+    daemon and the in-process front end alike). Its ATE against the truth stands
+    beside an in-process ``Odometry`` + ``Mapper`` on the card fed the same
+    scans, which must take the same keyframes and land within 1e-3 m (the
+    solve's atomics); the ATE must be under 0.5 m."""
+    from scl_slam_tpu_torch.config import load_config
+    from scl_slam_tpu_torch.io import trajectory as tio
+    from scl_slam_tpu_torch.runtime import mapper as M
+    from scl_slam_tpu_torch.runtime.odometry import Odometry
+    from scl_slam_tpu_torch.serve import SlamClient
+
+    from scl_slam_tpu_torch.io import lidar_sim
+
+    scene = lidar_sim.UrbanScene(seed=4)
+    sim = lidar_sim.LidarSim(scene, n_azimuth=2048)
+    gt = scene.circuit(step=1.0)[:SERVE_ODOM_FRAMES]
+    frames = list(range(SERVE_ODOM_FRAMES))
+    scans = [sim.scan_at(gt[k], seed=k) for k in frames]
+    config = os.path.join(ROOT, "configs", "kitti_velodyne.yaml")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        x for x in (ROOT, os.environ.get("PYTHONPATH")) if x))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "scl_slam_tpu_torch.serve", "--port", "0", "--config", config,
+         "--odometry", "icp"], cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        if "serving on :" not in line:
+            raise AssertionError(f"the daemon did not start: {line!r}")
+        client = SlamClient(port=int(line.rsplit(":", 1)[1]))
+        lat, kf, answered = [], [], []
+        for j, s in enumerate(scans):
+            t = time.perf_counter()
+            r = client.frame(s, None, stamp=0.1 * j)
+            lat.append((time.perf_counter() - t) * 1e3)
+            if "error" in r:
+                raise AssertionError(f"the daemon refused a pose-less frame: {r}")
+            kf.append(bool(r["keyframe"]))
+            answered.append(np.asarray(r["pose"]))
+        traj = client.trajectory()["poses"]
+        stats = client.stats()
+        client.shutdown()
+        client.close()
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lat = np.array(lat)
+    if rc != 0 or not all(np.isfinite(p).all() for p in answered) or stats["launches"]["nn_select"] < 1:
+        raise AssertionError(f"the daemon with --odometry icp: rc {rc}, stats {stats}")
+    odo, m = Odometry(), M.Mapper(load_config(config))
+    local_kf, odo_poses = [], []
+    for j, s in enumerate(scans):
+        pose, _ = odo.step(s)
+        odo_poses.append(np.concatenate([pose.R.cpu().numpy(), pose.t.cpu().numpy()[:, None]], 1))
+        wire = m.add_frame(pose, s, stamp=0.1 * j)
+        local_kf.append(wire is not None)
+        if wire is not None:
+            m.spin_once(now=0.1 * j)
+    kf_idx = [k for k, x in zip(frames, kf) if x]
+    gt_kf = np.stack([gt[k] for k in kf_idx])
+    d = float(np.abs(m.trajectory() - traj).max()) if local_kf == kf else float("inf")
+    ate_d, ate_m = tio.ate_rmse(traj, gt_kf), tio.ate_rmse(m.trajectory(), gt_kf)
+    log(f"[40] serve --odometry icp --config configs/kitti_velodyne.yaml: {len(scans)} pose-less "
+        f"frames, {sum(kf)} keyframes, a request p50 {np.percentile(lat, 50):.2f} ms, p99 "
+        f"{np.percentile(lat, 99):.2f} ms; ATE {ate_d:.4f} m (daemon) vs {ate_m:.4f} m (in-process "
+        f"Odometry + Mapper), trajectories within {d:.2e} m; the daemon's launches "
+        f"{stats['launches']}")
+    if local_kf != kf or d > 1e-3 or not ate_d < 0.5:
+        raise AssertionError(f"the daemon against in-process: keyframes {kf} vs {local_kf}, {d} m")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "scl_slam_tpu_torch")):
         raise RuntimeError(
@@ -3669,6 +4063,12 @@ def main() -> int:
     iris_live = run(33, phase_iris_live, torch, kernels)
     run(34, phase_iris_multi, torch, kernels)
     run(35, phase_vector_families, torch, kernels)
+    k4_odo = run(36, phase_k4_odometry, torch, kernels)
+    front = run(37, phase_odometry, torch, kernels)
+    run(38, phase_imu_odometry, torch, front)
+    del front["scans"]
+    run(39, phase_runner_front_ends, torch, kernels)
+    run(40, phase_serve_odometry, torch)
 
     def entry(name, source, replaces, n, res, library_ms=None):
         e = {"name": name, "route": "cuda", "source": f"scl_slam_tpu_torch/csrc/{source}",
@@ -3686,7 +4086,9 @@ def main() -> int:
     # the KITTI widths (phase 9; its time at that shape, [1, 131072]) and,
     # as max_image_iris, from the live Iris session (phase 33; its time at
     # that shape, [9, 131072] into 80 x 360 bins), K4
-    # from the live demo (phase 8), K3 from the two-robot run (phase 11), K6
+    # from the live demo (phase 8) and, as nn_select_odometry, from the
+    # ICP odometry (phase 37; its time at that shape, 4,096 x 32,768 P = 8),
+    # K3 from the two-robot run (phase 11), K6
     # from the fleet run (phase 15; its time at that run's [2, 256, 1024]),
     # K5, K7, K8 and K1's argmin body from the replay
     # under their switches (phase 21); no kernel but K2 has a single
@@ -3699,6 +4101,7 @@ def main() -> int:
         entry("max_image_iris", "max_image.cu", 1053, iris_live["launches"]["max_image"],
               k2_iris["iris_live"], k2_iris["iris_live"]["library_ms"]),
         entry("nn_select", "nn_select.cu", 132, live["nn_select"], k4["full"]),
+        entry("nn_select_odometry", "nn_select.cu", 132, front["launches"], k4_odo),
         entry("nearest_neighbors", "nn_select.cu", 532, multi["nearest_neighbors"], k3["full"]),
         entry("ransac_counts_batched", "ransac_counts.cu", 898, fleet["ransac_counts_batched"],
               k6["fleet_run"]),

@@ -27,8 +27,12 @@ drain (``graph/pcm.py``) and the exact chain + loop solver
 (``graph/chain_solver.py``) are ported too, and so are checkpoint / resume
 (``runtime/checkpoint.py``, the JAX package's file layout; ``run_robot
 --resume``, ``run_multi --respawn``) and the serving daemon (``python -m
-scl_slam_tpu_torch.serve``, with ``io/export.py``). ``Mapper`` runs on the GPU
-unless it is given ``device="cpu"``. What is still to come is listed in
+scl_slam_tpu_torch.serve``, with ``io/export.py``), and so is the front end:
+point-to-plane scan-to-map odometry with deskew (``runtime/odometry.py``,
+``ops/deskew.py``; its 1-NN on K4), IMU preintegration (``runtime/imu.py``)
+and the 15-state IMU window smoother (``graph/imu_factor.py``), behind
+``run --odometry icp|imu`` and ``serve --odometry icp``. ``Mapper`` runs on
+the GPU unless it is given ``device="cpu"``. What is still to come is listed in
 ``ROADMAP.md``.
 """
 

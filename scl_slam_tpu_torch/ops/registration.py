@@ -36,8 +36,11 @@ Fleet: ``ransac_align_batched``, B verifications at once, its 1-NN through
 ``_matches_batched`` (exact: kernel K1, or K7 under ``NN_INDEX``) and its
 hypotheses scored by kernel K6 (``kernels.ransac_counts_batched``) on
 CUDA tensors. Its uniforms come from the same counter hash, of (seed,
-step, lane, hypothesis, sample). Point-to-plane ICP is not ported yet
-(ROADMAP queue 1).
+step, lane, hypothesis, sample).
+
+Front end: ``icp_point_to_plane``, the scan-to-map registration of
+``runtime/odometry.py``, its 1-NN and the winner's normal by kernel K4 at
+P = 8.
 """
 from __future__ import annotations
 
@@ -266,6 +269,83 @@ def icp(
         )
     inlier_frac = n_good / torch.clamp(torch.sum(smask), min=1)
     return ICPResult(pose, fitness, inlier_frac, converged)
+
+
+def _point_to_plane_terms(src, smask, payload, pose, max_corr_dist):
+    """One 1-NN pass of the point-to-plane ICP at ``pose``: (moved
+    sources, their signed plane residuals r = n . (moved - t), their
+    weights, good [N])."""
+    moved = se3.transform_points(pose, src)
+    d2, sel = nearest_select(moved, payload)
+    good = smask & (sel[3] > 0.5) & (d2 < max_corr_dist * max_corr_dist)
+    n = sel[4:7].T
+    r = torch.sum(n * (moved - sel[:3].T), dim=-1)
+    return moved, n, r, good
+
+
+def icp_point_to_plane(
+    source: Cloud,
+    target: Cloud,
+    target_normals: torch.Tensor,
+    init: se3.Pose | None = None,
+    max_iters: int = 20,
+    max_corr_dist: float = 2.0,
+    damping: float = 1e-6,
+    tol: float = 1e-4,
+) -> ICPResult:
+    """Point-to-plane ICP: Gauss-Newton on se(3) of sum over
+    correspondences of (n_k . (T(s_k) - t_k))^2, the left-multiplicative
+    update ``exp(xi) * pose`` from the 6 x 6 damped normal equations.
+
+    The 1-NN and the winner's target point, validity and normal come from
+    one pass over the payload [8, Nt] (xyz at PAD_VALUE where invalid,
+    the mask, the normals, a zero row): kernel K4 on CUDA tensors. The
+    JAX ``while_loop`` is a host loop that reads the update norm once an
+    iteration and stops at ``delta < tol``. The fitness is the mean
+    squared plane residual over the good correspondences of a last pass at
+    the returned pose. ``target_normals``: [Nt, 3] unit normals.
+    """
+    dtype, dev = source.xyz.dtype, source.xyz.device
+    if init is None:
+        init = se3.identity(dtype=dtype, device=dev)
+    tgt = torch.where(target.mask[:, None], target.xyz, PAD_VALUE)
+    src = source.xyz.contiguous()
+    smask = source.mask
+    payload = torch.cat(
+        [
+            tgt.T,
+            target.mask[None].to(dtype),
+            target_normals.T.to(dtype),
+            torch.zeros((1, tgt.shape[0]), dtype=dtype, device=dev),
+        ],
+        dim=0,
+    ).contiguous()                                                  # [8, Nt]
+    eye6 = damping * torch.eye(6, dtype=dtype, device=dev)
+    pose = init
+    delta = float("inf")
+    delta_t = torch.tensor(delta, dtype=dtype, device=dev)
+    i = 0
+    while i < max_iters and delta >= tol:
+        moved, n, r, good = _point_to_plane_terms(src, smask, payload, pose, max_corr_dist)
+        w = good.to(dtype)
+        # the residual's Jacobian in the left twist (omega, v): (moved x n, n)
+        J = torch.cat([torch.linalg.cross(moved, n, dim=-1), n], dim=-1)   # [N, 6]
+        H = (J * w[:, None]).T @ J + eye6
+        b = -(J.T @ (w * r))
+        xi = torch.linalg.solve(H, b)
+        pose = se3.compose(se3.exp(xi), pose)
+        delta_t = torch.linalg.norm(xi)
+        delta = float(delta_t)
+        i += 1
+    _moved, _n, r, good = _point_to_plane_terms(src, smask, payload, pose, max_corr_dist)
+    n_good = torch.sum(good)
+    fitness = torch.where(
+        n_good > 0,
+        torch.sum(torch.where(good, r * r, 0.0)) / torch.clamp(n_good, min=1),
+        float("inf"),
+    )
+    inlier_frac = n_good / torch.clamp(torch.sum(smask), min=1)
+    return ICPResult(pose, fitness, inlier_frac, delta_t < tol)
 
 
 def _recentred(payload: torch.Tensor):

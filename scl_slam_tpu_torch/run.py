@@ -8,15 +8,25 @@ truth is available:
     python -m scl_slam_tpu_torch.run --dataset synthetic --frames 120
     python -m scl_slam_tpu_torch.run --dataset synthetic --device cpu --frames 40
     python -m scl_slam_tpu_torch.run --dataset kitti --root /data/kitti --sequence 00
+    python -m scl_slam_tpu_torch.run --dataset synthetic --odometry icp --deskew const
+    python -m scl_slam_tpu_torch.run --dataset synthetic --odometry imu --deskew gyro
 
-It runs on the GPU unless ``--device cpu`` is given. It replays a recorded
-sequence, so the solve throttle (``mapping_process_interval``) reads the
-frame stamps, 0.1 s apart, and a run does not depend on the machine's speed
-(the JAX runner reads the wall clock). The last line of its
-output is a JSON report (``ate_rmse_m``, ``ate_rmse_odom_only_m``,
-``loops_closed``, ``keyframes``, ``wall_s``, ...). Not ported yet, and
-refused with exit code 2: ``--odometry icp|imu`` (ROADMAP queue 1 item 3),
-``--loader native`` and ``--figure`` (item 5).
+It runs on the GPU unless ``--device cpu`` is given. ``--odometry gt`` takes
+the dataset's poses (with injected drift on the synthetic world);
+``icp`` runs the scan-to-map point-to-plane front end
+(``runtime/odometry.Odometry``), ``imu`` that front end fused with the
+15-state IMU window smoother (``ImuFusedOdometry``, window 6, 32 samples
+an interval), its IMU synthesized from the ground-truth motion (20 samples
+at 0.01 s an interval); ``--deskew`` picks their motion compensation.
+
+It replays a recorded sequence, so the solve throttle
+(``mapping_process_interval``) reads the frame stamps, 0.1 s apart, and a
+run does not depend on the machine's speed (the JAX runner reads the wall
+clock). The last line of its output is a JSON report (``ate_rmse_m``, ``ate_rmse_odom_only_m``,
+``loops_closed``, ``keyframes``, ``wall_s``, ...; the odometry-only ATE
+with ``--odometry gt`` only, as in the JAX runner). Not ported yet, and
+refused with exit code 2: ``--loader native`` and ``--figure`` (ROADMAP
+queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -51,7 +61,15 @@ def build_argparser():
                    help="kitti scan reader (native: not ported yet)")
     p.add_argument("--odometry", choices=["gt", "icp", "imu"], default="gt",
                    help="odometry source: gt = dataset poses (+injected drift "
-                   "for synthetic); icp and imu are not ported yet")
+                   "for synthetic); icp = scan-to-map point-to-plane odometry; "
+                   "imu = icp fused with the 15-state IMU window smoother (IMU "
+                   "synthesized from the dataset motion). For synthetic icp/imu "
+                   "use >= ~60 frames: fewer widen the frame spacing past the "
+                   "ICP correspondence gate")
+    p.add_argument("--deskew", choices=["none", "const", "gyro"], default="none",
+                   help="motion compensation of the icp/imu front end: const = "
+                   "constant twist from the motion prediction; gyro = the "
+                   "gyro-integrated rotation trajectory (imu mode)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=0, metavar="B",
                    help="replay mode: B frames per Mapper.add_frames call "
@@ -64,9 +82,6 @@ def build_argparser():
 
 def _refuse(args) -> str | None:
     """The reason an option cannot run on the port yet, or None."""
-    if args.odometry != "gt":
-        return (f"--odometry {args.odometry} is not ported yet (ROADMAP queue 1 "
-                "item 3: front end)")
     if args.loader == "native":
         return "--loader native is not ported yet (ROADMAP queue 1 item 5: I/O)"
     if args.figure:
@@ -150,14 +165,18 @@ def _pose(T):
     return se3.Pose(T[:3, :3], T[:3, 3])
 
 
-def run_live(mapper, n: int, get_scan, get_odom):
+def run_live(mapper, n: int, get_scan, get_odom, front_end=None):
     """The live loop: ``add_frame`` per frame, ``spin_once`` per keyframe
-    (throttled on the frame stamps), one final ``optimize``. Returns
-    (keyframe frame indices, loops as (frame, loop dict) pairs)."""
+    (throttled on the frame stamps), one final ``optimize``. The pose is
+    ``get_odom(k)`` (4 x 4), or ``front_end(k, scan)`` (a Pose) where a
+    front end is given. Returns (keyframe frame indices, loops as (frame,
+    loop dict) pairs)."""
     kf_frames, loops = [], []
     for k in range(n):
         stamp = 0.1 * k
-        wire = mapper.add_frame(_pose(get_odom(k)), get_scan(k), stamp=stamp)
+        scan = get_scan(k)
+        pose = front_end(k, scan) if front_end is not None else _pose(get_odom(k))
+        wire = mapper.add_frame(pose, scan, stamp=stamp)
         if wire is not None:
             kf_frames.append(k)
             info = mapper.spin_once(now=stamp)
@@ -202,11 +221,42 @@ def _run_batched(args, mapper, n, get_scan, get_odom):
     return kf_frames, n_loops
 
 
+def make_front_end(args, gt_of):
+    """The ``--odometry icp|imu`` front end as ``front_end(k, scan) ->
+    Pose`` on ``--device``, or None for ``gt``. The imu mode's IMU is
+    synthesized from the ground-truth motion between frames (KITTI odometry
+    ships none), 20 samples at 0.01 s, none before the first frame."""
+    from .runtime import imu as imu_mod
+    from .runtime.odometry import ImuFusedOdometry, Odometry, OdometryConfig
+
+    if args.odometry == "icp":
+        odo = Odometry(OdometryConfig(deskew=args.deskew), device=args.device)
+        return lambda k, scan: odo.step(scan)[0]
+    if args.odometry != "imu":
+        return None
+    # a 6-node window of 32-sample intervals, as the JAX runner's
+    fused = ImuFusedOdometry(OdometryConfig(deskew=args.deskew), window=6,
+                             max_samples=32, device=args.device)
+
+    def step(k, scan):
+        if k == 0:
+            acc = gyr = np.zeros((1, 3), np.float32)
+            dts = np.zeros((1,), np.float32)
+        else:
+            acc, gyr, dts = imu_mod.synthesize_between_frames(gt_of(k - 1), gt_of(k), 20, 0.01)
+        return fused.step(scan, acc, gyr, dts)[0]
+
+    return step
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     reason = _refuse(args)
     if reason:
         print(reason, file=sys.stderr)
+        return 2
+    if args.batch and args.odometry != "gt":
+        print("--batch requires --odometry gt (precomputed poses)", file=sys.stderr)
         return 2
 
     import torch
@@ -240,11 +290,13 @@ def main(argv=None):
             args.frames, args.seed, args.odom_drift
         )
 
+    front_end = make_front_end(args, gt_of)
+
     t_start = time.perf_counter()
     if args.batch:
         kf_frames, n_loops = _run_batched(args, mapper, n, get_scan, get_odom)
     else:
-        kf_frames, loops = run_live(mapper, n, get_scan, get_odom)
+        kf_frames, loops = run_live(mapper, n, get_scan, get_odom, front_end)
         n_loops = len(loops)
     if mapper.device.type == "cuda":
         torch.cuda.synchronize()
@@ -268,8 +320,9 @@ def main(argv=None):
         report["batch"] = args.batch
     gt_poses = np.stack([gt_of(k) for k in kf_frames])
     report["ate_rmse_m"] = round(tio.ate_rmse(est, gt_poses), 4)
-    dead = np.stack([np.asarray(get_odom(k)) for k in kf_frames])
-    report["ate_rmse_odom_only_m"] = round(tio.ate_rmse(dead, gt_poses), 4)
+    if args.odometry == "gt":
+        dead = np.stack([np.asarray(get_odom(k)) for k in kf_frames])
+        report["ate_rmse_odom_only_m"] = round(tio.ate_rmse(dead, gt_poses), 4)
     print(json.dumps(report))
     return 0
 

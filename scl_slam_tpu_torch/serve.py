@@ -2,8 +2,9 @@
 ``scl_slam_tpu/serve.py``): scans in over a socket, poses out.
 
 One process owns a :class:`Mapper` on the card (``--device cpu`` for the
-CPU), accepts framed requests over TCP and answers with poses and
-trajectories. The wire format is the length-prefixed, pickle-free npz
+CPU), and with ``--odometry icp`` the scan-to-map ICP front end
+(``runtime/odometry.Odometry``) on the same device. It accepts framed
+requests over TCP and answers with poses and trajectories. The wire format is the length-prefixed, pickle-free npz
 framing of ``runtime/transport.py``, the JAX package's, so a client of
 either package talks to a server of either.
 
@@ -11,8 +12,8 @@ Protocol (request, response) pairs:
 
 - ``("frame", {"xyz": [N,3] f32, "pose": [4,4] | None, "stamp": float})`` ->
   ``{"keyframe": bool, "pose": [4,4], "loop": dict | None}``
-  (a frame without a pose is answered with an error: the ICP odometry
-  front end is not ported, ROADMAP queue 1 item 3)
+  (a frame without a pose takes the front end's; without a front end it is
+  answered with an error)
 - ``("trajectory", {"robot": int | None})`` -> ``{"poses": [M,4,4], "stamps": [M]}``
 - ``("save", {"directory": str})`` -> ``{"ok": True}`` (TUM and KITTI
   trajectories, ``global_map.ply``, keyposes PCD, ``loop_constraints.json``)
@@ -21,7 +22,7 @@ Protocol (request, response) pairs:
   ``broken_drains`` and ``solve_breakdowns``)
 - ``("shutdown", {})`` -> stops the server
 
-    python -m scl_slam_tpu_torch.serve --port 7450 [--config cfg.yaml] [--device cpu]
+    python -m scl_slam_tpu_torch.serve --port 7450 [--odometry icp] [--config cfg.yaml] [--device cpu]
 
 Client: :class:`SlamClient` below.
 """
@@ -29,31 +30,34 @@ from __future__ import annotations
 
 import argparse
 import socket
-import sys
 import threading
 
 import numpy as np
 
 from .runtime.transport import _DECODE_ERRORS, _recv_frame, _send_frame
 
-_NO_ODOMETRY = ("the ICP odometry front end is not ported yet (ROADMAP queue 1 "
-                "item 3: runtime/odometry.py); send poses with the frames")
-
 
 class SlamServer:
     """Serve one robot's :class:`Mapper` on ``device`` (the card unless
-    ``device="cpu"``). Requests are handled one at a time. The solve
-    throttle reads the frames' stamps (the JAX server reads the wall
-    clock), so what the server answers does not depend on its speed."""
+    ``device="cpu"``), with ``odometry="icp"`` an :class:`Odometry` at its
+    default configuration on the same device for frames sent without a
+    pose. Requests are handled one at a time. The solve throttle reads the
+    frames' stamps (the JAX server reads the wall clock), so what the server
+    answers does not depend on its speed."""
 
     def __init__(self, cfg=None, odometry: str = "none", device: str = "cuda"):
-        if odometry != "none":
-            raise NotImplementedError(_NO_ODOMETRY)
         from .config import SlamConfig
         from .runtime import Mapper
 
+        if odometry not in ("none", "icp"):
+            raise ValueError(f"odometry must be 'none' or 'icp', got {odometry!r}")
         self.cfg = cfg or SlamConfig()
         self.mapper = Mapper(self.cfg, device=device)
+        self.odo = None
+        if odometry == "icp":
+            from .runtime.odometry import Odometry
+
+            self.odo = Odometry(device=device)
         self._lock = threading.Lock()
         self._frames = 0
         self._loops = 0
@@ -65,10 +69,14 @@ class SlamServer:
             xyz = np.asarray(payload["xyz"], np.float32)
             with self._lock:
                 self._frames += 1
-                if payload.get("pose") is None:
+                if payload.get("pose") is not None:
+                    pose = self.mapper._pose_in(payload["pose"])
+                elif self.odo is not None:
+                    pose, _ = self.odo.step(xyz)
+                else:
                     return {"error": "no pose given and odometry disabled"}
                 stamp = float(payload.get("stamp", 0.0))
-                wire = self.mapper.add_frame(self.mapper._pose_in(payload["pose"]), xyz, stamp=stamp)
+                wire = self.mapper.add_frame(pose, xyz, stamp=stamp)
                 loop = None
                 if wire is not None:
                     loop = self.mapper.spin_once(now=stamp).get("loop")
@@ -175,22 +183,20 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=7450, help="listen port (0: any free port)")
     p.add_argument("--config", help="YAML config path")
     p.add_argument("--odometry", choices=["none", "icp"], default="none",
-                   help="icp is not ported yet (exits 2)")
+                   help="icp: run the scan-to-map ICP front end for frames "
+                   "sent without a pose")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the mapper runs (default: the GPU)")
     p.add_argument("--map-every", type=float, default=0.0,
                    help="also export the map to --map-dir every this many seconds")
     p.add_argument("--map-dir", help="directory of the periodic map exports")
     args = p.parse_args(argv)
-    if args.odometry != "none":
-        print(_NO_ODOMETRY, file=sys.stderr)
-        return 2
     cfg = None
     if args.config:
         from .config import load_config
 
         cfg = load_config(args.config)
-    server = SlamServer(cfg, device=args.device)
+    server = SlamServer(cfg, odometry=args.odometry, device=args.device)
     stop_publisher = None
     if args.map_every > 0:
         if not args.map_dir:

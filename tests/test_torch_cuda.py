@@ -371,6 +371,29 @@ def test_k4_cuda_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+def test_k4_cuda_kernel_at_the_odometry_shape(cuda_device):
+    """K4 at the point-to-plane odometry's shape, 4,096 scan points against
+    the 32,768-row map with its P = 8 payload (xyz, validity, normal, pad),
+    the second half of the map PAD_VALUE rows (a map still filling): d2
+    bit-equal to the plain version, the selection equal, the planted
+    equidistant ties to the lower index."""
+    kernels.reset_launch_counts()
+    q, payload, n_grid = nn_solo_inputs(12, 4096, 32768, 8)
+    payload[:3, 8192:24576] = 1e6   # half the rows pads, the planted ties kept
+    payload[3, 8192:24576] = 0.0
+    args = [torch.from_numpy(x).to(cuda_device) for x in (q, payload)]
+    d, sel = kernels.nn_select(*args)
+    d_ref, sel_ref = kernels.nn_select_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d_ref)
+    assert torch.equal(sel, sel_ref)
+    on_grid = d[:n_grid] == 1.0
+    assert int(on_grid.sum()) >= 4
+    assert torch.equal(sel[0, :n_grid][on_grid], args[0][:n_grid, 0][on_grid] - 1.0)
+    assert kernels.LAUNCHES["nn_select"] == 1
+
+
+@pytest.mark.cuda
 def test_k3_cuda_kernel_matches_plain(cuda_device):
     """d2 bit-equal and the index equal (lowest index on exact ties; PAD
     targets; no target gives (inf, 0)) at the verification shapes and at

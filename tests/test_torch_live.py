@@ -201,7 +201,7 @@ def test_runner_on_cpu(tmp_path, capsys):
     assert sorted(os.listdir(out)) == ["a_kitti.txt", "a_tum.txt"]
     assert trun.main(["--device", "cpu", "--frames", "10", "--batch", "4", "--output", out]) == 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["batch"] == 4
-    for bad in (["--odometry", "icp"], ["--loader", "native"], ["--figure"]):
+    for bad in (["--loader", "native"], ["--figure"]):
         assert trun.main(["--device", "cpu", *bad]) == 2
         assert "not ported yet" in capsys.readouterr().err
 

@@ -182,13 +182,6 @@ def test_daemon_command_line(tmp_path):
             proc.wait()
 
 
-def test_odometry_icp_exits_2(capsys):
-    assert serve.main(["--odometry", "icp", "--device", "cpu"]) == 2
-    assert "ROADMAP queue 1 item 3" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="front end"):
-        serve.SlamServer(tiny(tconfig), odometry="icp", device="cpu")
-
-
 def test_timers_and_device_trace(tmp_path):
     t = timing.Timers("cpu")
     with t.time("stage"):
