@@ -224,11 +224,29 @@ Phases (any failure raises, and the script exits non-zero):
    start fires the gate on the first frames (as in the JAX package), the
    output's ATE under 0.6 m;
 39. ``run --dataset synthetic --odometry icp`` and ``--odometry imu
-   --deskew gyro`` at the demo's defaults: exit 0, loops and ATE;
+   --deskew gyro`` at the demo's widths, ``RUNNER_FRONT_FRAMES`` frames:
+   exit 0, loops and ATE;
 40. the daemon with ``--odometry icp`` answering pose-less frames of the
    simulator (a drive 1 m a frame) with finite poses, its ATE beside an in-process
    ``Odometry`` + ``Mapper`` on the card (the same keyframes, the
-   trajectories within 1e-3 m).
+   trajectories within 1e-3 m);
+41. the C++ prefetching loader (``io/native_loader.py``) built from the
+   checkout: 24 scans of the simulator (up to 131,072 points) written as a
+   KITTI tree, read at a 131,072-point capacity (scans/s), each bit-equal
+   to the Python reader's; ``run --dataset kitti --loader native`` and
+   ``--loader python`` on the card with the same keyframes and loops; the
+   Euler and quaternion conversions on the card against the CPU;
+42. ``parallel/sharded.sharded_solve`` at four_robot_cityscale.yaml's
+   widths (16,384 poses, 32,768 edges, coarse stride 32, 96 PCG steps, 10
+   Gauss-Newton steps) in a world of size 1 over NCCL and in two ranks
+   sharing the card over gloo (NCCL refuses two ranks on one GPU), held
+   against each other, and a 1,024-pose problem card against CPU in both;
+   ms and all-reduces a solve;
+43. ``parallel/dryrun.dryrun_multichip`` on the card at 2 x gloo and 1 x
+   NCCL, then a ``FleetMapper`` at the city-scale widths with the DB
+   sharded and the drain on the mesh over two gloo ranks against the
+   whole-DB fleet (counts, queue, loops, trajectories); K1, K2 and K6
+   launches and wall seconds.
 
 Kernel times are CUDA events around replays of a CUDA graph of the call
 (device time without the host's launch cost), beside the eager call's
@@ -3902,11 +3920,15 @@ def phase_imu_odometry(torch, front: dict) -> None:
         raise AssertionError(f"the fused front end at 20 m/s: ATE {ate2}")
 
 
+RUNNER_FRONT_FRAMES = 64
+
+
 def phase_runner_front_ends(torch, kernels) -> None:
     """Phase 39: ``python -m scl_slam_tpu_torch.run --dataset synthetic
     --odometry icp`` and ``--odometry imu --deskew gyro`` at the demo's
-    defaults (120 frames of 32,768-point scans) on the card: exit 0, the
-    loops and the ATE printed."""
+    widths (32,768-point scans), ``RUNNER_FRONT_FRAMES`` frames (1.5 laps:
+    the depth cut from the default 120 to make room for phases 41-43) on
+    the card: exit 0, the loops and the ATE printed."""
     import contextlib
     import io
 
@@ -3916,7 +3938,8 @@ def phase_runner_front_ends(torch, kernels) -> None:
         buf = io.StringIO()
         kernels.reset_launch_counts()
         with contextlib.redirect_stdout(buf):
-            rc = R.main(["--dataset", "synthetic", *argv, "--output",
+            rc = R.main(["--dataset", "synthetic", *argv, "--frames", str(RUNNER_FRONT_FRAMES),
+                         "--output",
                          os.path.join(ROOT, "chiprun_out", "run_" + argv[1])])
         report = json.loads(buf.getvalue().strip().splitlines()[-1]) if rc == 0 else {}
         log(f"[39] run --dataset synthetic {' '.join(argv)} -> rc {rc}, {json.dumps(report)}; "
@@ -4003,6 +4026,577 @@ def phase_serve_odometry(torch) -> None:
         raise AssertionError(f"the daemon against in-process: keyframes {kf} vs {local_kf}, {d} m")
 
 
+NATIVE_FRAMES = 24
+NATIVE_TRAJ_ATOL = 1e-4
+CONVERSION_ATOL = 2e-6
+SHARDED_POSES = (4, 4096)     # robots x pose slots: four_robot_cityscale.yaml
+SHARDED_SMALL = (1, 1024)
+# timed solves of the 16,384-pose problem: NCCL world 1 (the first warms up), gloo-2
+SHARDED_REPS = (2, 1)
+FLEET_SHARDED_FRAMES = 16
+
+
+def write_kitti_tree(root: str, scans, poses) -> list:
+    """A KITTI odometry tree under ``root``: sequence 00's scans as float32
+    x, y, z, r files, its cam0 poses through a non-trivial Tr calib (the
+    layout tests/test_kitti_format.py writes). Returns the .bin paths."""
+    seq = os.path.join(root, "sequences", "00")
+    os.makedirs(os.path.join(seq, "velodyne"), exist_ok=True)
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    Tr = np.eye(4)
+    Tr[:3, :3] = [[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]]
+    Tr[:3, 3] = [0.05, -0.1, 0.2]
+    paths, lines = [], []
+    for k, (scan, T) in enumerate(zip(scans, poses)):
+        p = os.path.join(seq, "velodyne", f"{k:06d}.bin")
+        xyzr = np.concatenate([scan.astype(np.float32), np.zeros((len(scan), 1), np.float32)], 1)
+        xyzr.tofile(p)
+        paths.append(p)
+        cam = Tr @ T @ np.linalg.inv(Tr)
+        lines.append(" ".join(f"{v:.9e}" for v in cam[:3, :4].ravel()))
+    with open(os.path.join(root, "poses", "00.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        f.write("Tr: " + " ".join(f"{v:.9e}" for v in Tr[:3, :4].ravel()) + "\n")
+    return paths
+
+
+def phase_native_loader(torch) -> dict:
+    """Phase 41: the C++ prefetching loader (``io/native_loader.py``) at
+    the KITTI widths: ``NATIVE_FRAMES`` scans of the simulator's urban world
+    (2,048 azimuths, up to 131,072 points) written as a KITTI tree under
+    chiprun_out/; the loader built from the checkout (build seconds), its
+    scans/s at a 131,072-point capacity and each scan bit-equal to the
+    Python reader's; ``run --dataset kitti --loader native`` and
+    ``--loader python`` on the card: the same keyframes and loops, the
+    trajectories within ``NATIVE_TRAJ_ATOL`` (the scans are deleted after,
+    the runs' outputs kept); then the Euler and
+    quaternion conversions on the card against the CPU within
+    ``CONVERSION_ATOL``."""
+    import io
+    import shutil
+
+    from scl_slam_tpu_torch import bench_quality as bq
+    from scl_slam_tpu_torch import run as trun
+    from scl_slam_tpu_torch.geometry import se3, so3
+    from scl_slam_tpu_torch.io import kitti as kio
+    from scl_slam_tpu_torch.io import native_loader
+
+    scene, sim, _ = anchor_world(2048, "cuda")
+    gt = bq.build_gt(scene, (0.0, 0.0))
+    frames = list(range(0, 2 * NATIVE_FRAMES, 2))
+    root = os.path.join(ROOT, "chiprun_out", "kitti_native")
+    shutil.rmtree(root, ignore_errors=True)
+    paths = write_kitti_tree(root, [sim.scan_at(gt[k], seed=k) for k in frames],
+                             [np.asarray(gt[k], np.float64) for k in frames])
+    t = time.perf_counter()
+    lib = native_loader.build()
+    build_s = time.perf_counter() - t
+    loader = native_loader.NativeScanLoader(paths, capacity=131072)
+    t = time.perf_counter()
+    loaded = list(loader)
+    read_s = time.perf_counter() - t
+    loader.close()
+    for (xyz, n), p in zip(loaded, paths):
+        ref = kio.read_velodyne_bin(p)
+        if n != len(ref) or not np.array_equal(xyz[:n], ref) or not (xyz[n:] == 1e6).all():
+            raise AssertionError(f"the native loader's scan of {p} differs from the Python reader's")
+    points = sum(n for _, n in loaded)
+    log(f"[41] native loader {lib.name} built in {build_s:.2f} s; {len(paths)} scans "
+        f"({points} points, up to {max(n for _, n in loaded)}) in {read_s * 1e3:.1f} ms: "
+        f"{len(paths) / read_s:.1f} scans/s at capacity 131,072, each bit-equal to the Python reader")
+    reports, trajs = {}, {}
+    for which in ("native", "python"):
+        out = os.path.join(root, f"run_{which}")
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = trun.main(["--dataset", "kitti", "--root", root, "--sequence", "00",
+                            "--frames", str(len(frames)), "--output", out, "--loader", which,
+                            "--no-figure"])
+        wall = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"run --loader {which} exited {rc}")
+        reports[which] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        trajs[which] = np.loadtxt(os.path.join(out, "a_kitti.txt"))
+        log(f"[41] run --dataset kitti --loader {which}: {json.dumps(reports[which])} "
+            f"({wall:.1f} s in all)")
+    nat, py = reports["native"], reports["python"]
+    gap = float(np.abs(trajs["native"] - trajs["python"]).max())
+    if (nat["keyframes"] != py["keyframes"] or nat["loops_closed"] != py["loops_closed"]
+            or trajs["native"].shape != trajs["python"].shape or gap > NATIVE_TRAJ_ATOL
+            or nat["device"] != torch.cuda.get_device_name(0)):
+        raise AssertionError(f"--loader native and python part: {nat} vs {py}, gap {gap}")
+    log(f"[41] native and python loading: {nat['keyframes']} keyframes, "
+        f"{nat['loops_closed']} loops each, trajectories {gap:.3g} m apart")
+    # the scans (~47 MB) are not brought back; the runs' outputs are
+    shutil.rmtree(os.path.join(root, "sequences"))
+    # the conversions on the card against the CPU
+    rng = np.random.RandomState(41)
+    rpy = rng.uniform(-np.pi, np.pi, (4096, 3)).astype(np.float32)
+    rpy[:, 1] /= 2.0
+    rpy[:4, 1] = [np.pi / 2, -np.pi / 2, np.pi / 2 - 1e-4, 0.0]
+    q = rng.normal(size=(4096, 4)).astype(np.float32)
+    x6 = np.concatenate([rng.uniform(-50, 50, (4096, 3)).astype(np.float32), rpy], 1)
+    # every conversion takes the same f32 inputs on both devices (one
+    # matrix made on the CPU): near pitch +-pi/2 the angles read two
+    # roundings of R, so the devices' own from_euler would part there
+    R_np = so3.from_euler(torch.from_numpy(rpy)).numpy()
+    worst = 0.0
+    for dev in ("cpu", "cuda"):
+        R = torch.from_numpy(R_np).to(dev)
+        outs = [so3.to_euler(R), so3.from_euler(torch.from_numpy(rpy).to(dev)),
+                so3.quat_to_matrix(torch.from_numpy(q).to(dev)), so3.matrix_to_quat(R),
+                se3.from_xyzrpy(torch.from_numpy(x6).to(dev)).R,
+                se3.to_xyzrpy(se3.Pose(R, torch.from_numpy(x6[:, :3]).to(dev))),
+                se3.to_quat_trans(se3.Pose(R, torch.from_numpy(x6[:, :3]).to(dev)))[0]]
+        if dev == "cpu":
+            ref = [o.numpy() for o in outs]
+        else:
+            for o, r in zip(outs, ref):
+                worst = max(worst, float(np.abs(o.cpu().numpy() - r).max()))
+    if worst > CONVERSION_ATOL:
+        raise AssertionError(f"the conversions on the card differ from the CPU by {worst}")
+    log(f"[41] Euler/quaternion conversions, 4,096 rotations: card against CPU within {worst:.3g}")
+    return {"build_s": build_s, "scans_per_s": len(paths) / read_s}
+
+
+def solve_problem(robots: int, per: int, seed: int = 42):
+    """A pose graph of ``robots`` blocks of ``per`` poses (the city-scale
+    layout: robot r's keyframes in slots [r per, (r + 1) per)): each robot
+    drives two laps of a 60 m circle with noisy odometry (a prior on its
+    first pose), with loop factors from its second lap to its first and
+    between robots on the shared circuit. The start is the ground truth
+    with every pose moved by 2e-3 rad and 5 cm at random: what a drain
+    solves from, the estimate of the last solve and new factors (from dead
+    reckoning over 4,096 poses, 10 x 96 steps do not converge the f32
+    problem, and two reduction orders part by ~1e-2 m). Returns (graph
+    arrays at twice the slots' edge capacity, the start's R, t) as numpy."""
+    rng = np.random.RandomState(seed)
+    n = robots * per
+    E, P = 2 * n, 8
+    half = per // 2
+    gt = np.zeros((n, 4, 4))
+    for r in range(robots):
+        a = 2 * np.pi * (np.arange(per) % half) / half + 0.3 * r
+        gt[r * per:(r + 1) * per, :3, :3] = [rot(np.array([0, 0, x + np.pi / 2])) for x in a]
+        gt[r * per:(r + 1) * per, :3, 3] = np.stack(
+            [60 * np.cos(a), 60 * np.sin(a), 0.5 * r + 0.2 * np.sin(3 * a)], -1)
+        gt[r * per:(r + 1) * per, 3, 3] = 1.0
+    ii, jj, Z, si = [], [], [], []
+
+    def factor(i, j, z, s):
+        ii.append(i), jj.append(j), Z.append(z), si.append(s)
+
+    for r in range(robots):
+        for k in range(r * per, (r + 1) * per - 1):
+            noise = np.eye(4)
+            noise[:3, :3], noise[:3, 3] = rot(rng.normal(0, 3e-4, 3)), rng.normal(0, 5e-3, 3)
+            z = np.linalg.inv(gt[k]) @ gt[k + 1] @ noise
+            factor(k, k + 1, z, [1.0 / 3e-4] * 3 + [1.0 / 5e-3] * 3)
+        for a in range(0, half, 16):        # the second lap back to the first
+            factor(r * per + a, r * per + a + half,
+                   np.linalg.inv(gt[r * per + a]) @ gt[r * per + a + half], [100.0] * 6)
+        if r:                               # onto the previous robot's circuit
+            for a in range(0, per, 64):
+                b = (r - 1) * per + a
+                factor(b, r * per + a, np.linalg.inv(gt[b]) @ gt[r * per + a], [30.0] * 6)
+    m = len(ii)
+    Z = np.stack(Z).astype(np.float32)
+    eye = np.tile(np.eye(3, dtype=np.float32), (E, 1, 1))
+    g = {"i": np.zeros(E, np.int32), "j": np.zeros(E, np.int32), "z.R": eye,
+         "z.t": np.zeros((E, 3), np.float32), "sqrt_info": np.zeros((E, 6), np.float32),
+         "num_edges": np.int32(m), "prior_idx": np.zeros(P, np.int32),
+         "prior_z.R": np.tile(np.eye(3, dtype=np.float32), (P, 1, 1)),
+         "prior_z.t": np.zeros((P, 3), np.float32), "prior_sqrt_info": np.zeros((P, 6), np.float32),
+         "num_priors": np.int32(robots)}
+    g["i"][:m], g["j"][:m] = ii, jj
+    g["z.R"][:m], g["z.t"][:m], g["sqrt_info"][:m] = Z[:, :3, :3], Z[:, :3, 3], si
+    X = gt.copy()
+    for k in range(n):
+        X[k, :3, :3] = gt[k, :3, :3] @ rot(rng.normal(0, 2e-3, 3))
+        X[k, :3, 3] += rng.normal(0, 0.05, 3)
+    for r in range(robots):
+        g["prior_idx"][r] = r * per
+        g["prior_z.R"][r], g["prior_z.t"][r] = gt[r * per][:3, :3], gt[r * per][:3, 3]
+        g["prior_sqrt_info"][r] = 1000.0
+    return g, X[:, :3, :3].astype(np.float32), X[:, :3, 3].astype(np.float32)
+
+
+def sharded_solve_kwargs():
+    """four_robot_cityscale.yaml's mesh-drain settings."""
+    return dict(gn_iters=10, cg_iters=96, damping=1e-6, gamma=1.0,
+                rotation_change_threshold=0.0, pose_change_threshold=0.0,
+                coarse_stride=32, coarse_levels=1)
+
+
+def rank_solves(rank: int, world: int, problems) -> list:
+    """Phase 42 in each rank: ``sharded_solve`` of each (graph arrays, R0,
+    t0, device, timed reps) over the default group; returns per problem
+    the last rep's R and t, every rep's t and chi2 history, ms a solve,
+    all-reduces, their bytes and broadcasts a solve, and each rep's
+    breakdown in words."""
+    import torch
+
+    from scl_slam_tpu_torch.geometry import se3
+    from scl_slam_tpu_torch.graph import factors as F
+    from scl_slam_tpu_torch.graph import solver
+    from scl_slam_tpu_torch.parallel import sharded
+
+    out = []
+    for g_np, R0, t0, dev, reps in problems:
+        t = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in g_np.items()}
+        g = F.FactorGraph(t["i"], t["j"], se3.Pose(t["z.R"], t["z.t"]), t["sqrt_info"],
+                          t["num_edges"], t["prior_idx"], se3.Pose(t["prior_z.R"], t["prior_z.t"]),
+                          t["prior_sqrt_info"], t["num_priors"])
+        init = se3.Pose(torch.from_numpy(R0).to(dev), torch.from_numpy(t0).to(dev))
+        res = {"ms": [], "ts": [], "chis": [], "codes": []}
+        for _ in range(reps):
+            sharded.reset_counts()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            poses, chis, code = sharded.sharded_solve(None, g, init, **sharded_solve_kwargs())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            res["ms"].append((time.perf_counter() - t1) * 1e3)
+            res["ts"].append(poses.t.cpu().numpy())
+            res["chis"].append(chis.cpu().numpy())
+            res["codes"].append(solver.breakdown_stages(int(code)))
+        res.update(R=poses.R.cpu().numpy(), t=res["ts"][-1], chi2=res["chis"][-1],
+                   all_reduce=sharded.COUNTS["all_reduce"],
+                   bytes=sharded.COUNTS["all_reduce_bytes"],
+                   broadcast=sharded.COUNTS["broadcast"])
+        out.append(res)
+    return out
+
+
+# Two reduction orders of one f32 solve part along the chain's smooth
+# modes, which its chi2 barely sees: measured on the CPU between world
+# sizes 1 and 2 (gloo) from solve_problem's start, 3.4e-3 m at 16,384
+# poses (6.3e-4 m at 1,024), the final chi2 3e-5 (5e-5) relative, and the
+# chi2 after the first step 2.4e-2 (8.1e-2). On an H100 80GB HBM3 at
+# 700 W, over a dozen runs (PERF.md): NCCL against gloo 2.4e-4 to 5.5e-3
+# m, the gloo solves among themselves up to 5.1e-3 m, 1,024 poses card
+# against CPU 6.8e-5 to 2.4e-4 m, every chi2 history within 1.2e-2 to
+# 6.5e-2 relative, the final chi2 within 1.3e-4.
+SHARDED_T_ATOL = 1e-2          # m, 16,384 poses
+SHARDED_SMALL_T_ATOL = 1e-3    # m, 1,024 poses
+SHARDED_CHI2_RTOL = 1.2e-1     # the history
+SHARDED_FINAL_RTOL = 1e-3      # the final chi2
+
+
+def rank_distributed(rank: int, world: int, problems, fleet_frames: int) -> dict:
+    """Phases 42-43 in each rank, one process group a world (a spawn costs
+    15-25 s of process start and CUDA set-up): the solves of ``rank_solves``,
+    the dry run's parts A-D (``parallel/dryrun.rank_dryrun``) and, where
+    ``fleet_frames``, the sharded fleet session."""
+    from scl_slam_tpu_torch.parallel import dryrun
+
+    out = {"solves": rank_solves(rank, world, problems)}
+    t = time.perf_counter()
+    out["dryrun"] = dryrun.rank_dryrun(rank, world, "cuda")
+    out["dryrun_s"] = time.perf_counter() - t
+    if fleet_frames:
+        out["fleet"] = rank_fleet_session(rank, world, fleet_frames)
+    return out
+
+
+DISTRIBUTED: dict = {}   # phase 42's spawns, read by phase 43
+
+
+def phase_sharded_solve(torch) -> dict:
+    """Phase 42: ``parallel/sharded.sharded_solve`` at the city-scale widths
+    (``SHARDED_POSES``: 16,384 pose slots, 32,768 edges, coarse stride 32
+    so a [3,072, 3,072] dense coarse Cholesky, 96 PCG steps, 10
+    Gauss-Newton steps) in a world of size 1 over NCCL and in two ranks
+    sharing the card over gloo: the final poses and chi2 histories held
+    against each other (``SHARDED_T_ATOL``, ``SHARDED_CHI2_RTOL``,
+    ``SHARDED_FINAL_RTOL``: each rank's sums come back through all-reduce
+    in another grouping, and the card's scatter-sums run in varying order),
+    beside the spread of two NCCL solves of one problem (the first warms
+    up; the gloo ranks solve once); a 1,024-pose problem in the same ranks on the card, held against
+    the CPU's (world 1, gloo for CPU tensors) within
+    ``SHARDED_SMALL_T_ATOL``; ms a solve, all-reduces and broadcasts a
+    solve. The same worlds then run phase 43's dry run and fleet session
+    (``rank_distributed``), whose checks phase 43 makes."""
+    from scl_slam_tpu_torch.parallel import multihost
+
+    import tempfile
+
+    big = solve_problem(*SHARDED_POSES)
+    small = solve_problem(*SHARDED_SMALL, seed=7)
+    # the world of size 1 is this process (a spawn costs ~15-25 s): its
+    # group is left before the gloo ranks start
+    t = time.perf_counter()
+    multihost.init(f"file://{tempfile.mkdtemp(prefix='nccl_')}/store", 1, 0,
+                   backend="cpu:gloo,cuda:nccl", device="cuda")
+    try:
+        nccl = [rank_distributed(0, 1, [(*big, "cuda", SHARDED_REPS[0]), (*small, "cuda", 1),
+                                        (*small, "cpu", 1)], 0)]
+    finally:
+        multihost.shutdown()
+    t_nccl = time.perf_counter() - t
+    t = time.perf_counter()
+    # the gloo ranks' CPU side would repeat the CPU reference: left out
+    gloo = multihost.spawn(rank_distributed, 2,
+                           ([(*big, "cuda", SHARDED_REPS[1]), (*small, "cuda", 1)],
+                            FLEET_SHARDED_FRAMES),
+                           device="cuda", backend="gloo")
+    t_gloo = time.perf_counter() - t
+    DISTRIBUTED.update(nccl=nccl, gloo=gloo)
+    log(f"[42] the worlds of phases 42-43: NCCL world 1 (this process) {t_nccl:.1f} s, two "
+        f"spawned gloo ranks {t_gloo:.1f} s, start to exit")
+    nccl = [o["solves"] for o in nccl]
+    gloo = [o["solves"] for o in gloo]
+    for name, outs in (("nccl-1", nccl), ("gloo-2", gloo)):
+        r = outs[0][0]
+        for tt, chis, code in zip(r["ts"], r["chis"], r["codes"]):
+            if not (np.isfinite(tt).all() and np.isfinite(chis).all()) or code:
+                raise AssertionError(f"{name}: the 16,384-pose solve broke down: {code}, chi2 "
+                                     f"{chis.tolist()}, {int((~np.isfinite(tt)).any(-1).sum())} "
+                                     f"poses non-finite")
+            if not chis[-1] < 1e-2 * chis[0]:
+                raise AssertionError(f"{name}: chi2 {chis[0]} -> {chis[-1]} did not fall")
+        spread = max(float(np.abs(x - y).max()) for x in r["ts"] for y in r["ts"])
+        log(f"[42] sharded_solve {name}, 16,384 poses, {int(big[0]['num_edges'])} edges: ms a "
+            f"solve {[round(x, 1) for x in r['ms']]} (the first warm), {r['all_reduce']} "
+            f"all-reduces ({r['bytes'] / 1e6:.1f} MB) and {r['broadcast']} broadcasts a solve, "
+            f"chi2 {r['chi2'][0]:.6g} -> {r['chi2'][-1]:.6g}, its solves up to {spread:.3g} m "
+            f"apart; 1,024 poses on the card {outs[0][1]['ms'][0]:.1f} ms")
+    for r in gloo[1:]:   # the ranks hold one result
+        for key in ("R", "t", "chi2"):
+            if not np.array_equal(r[0][key], gloo[0][0][key]):
+                raise AssertionError("gloo-2: the ranks' solves differ")
+    # every NCCL solve against every gloo one
+    pairs = [(t1, c1, t2, c2) for t1, c1 in zip(nccl[0][0]["ts"], nccl[0][0]["chis"])
+             for t2, c2 in zip(gloo[0][0]["ts"], gloo[0][0]["chis"])]
+    gap_t = max(float(np.abs(t1 - t2).max()) for t1, _, t2, _ in pairs)
+    gap_c = max(float(np.abs(c1 / c2 - 1).max()) for _, c1, _, c2 in pairs)
+    gap_f = max(float(abs(c1[-1] / c2[-1] - 1)) for _, c1, _, c2 in pairs)
+    gap_R = float(np.abs(nccl[0][0]["R"] - gloo[0][0]["R"]).max())
+    log(f"[42] nccl-1 against gloo-2 at 16,384 poses ({len(pairs)} pairs of solves): t "
+        f"{gap_t:.3g} m, R {gap_R:.3g} (the last of each), chi2 history {gap_c:.3g}, final "
+        f"{gap_f:.3g} relative")
+    if not (gap_t <= SHARDED_T_ATOL and gap_c <= SHARDED_CHI2_RTOL and gap_f <= SHARDED_FINAL_RTOL):
+        raise AssertionError("the NCCL and gloo solves part beyond the stated tolerance")
+    cpu = nccl[0][2]
+    log(f"[42] 1,024 poses on the CPU (world 1, gloo) {cpu['ms'][0]:.1f} ms")
+    for name, outs in (("nccl-1", nccl), ("gloo-2", gloo)):
+        card = outs[0][1]
+        g_t = float(np.abs(card["t"] - cpu["t"]).max())
+        g_c = float(np.abs(card["chi2"] / cpu["chi2"] - 1).max())
+        g_f = float(abs(card["chi2"][-1] / cpu["chi2"][-1] - 1))
+        log(f"[42] {name} 1,024 poses, card against CPU: t {g_t:.3g} m, chi2 history "
+            f"{g_c:.3g}, final {g_f:.3g} relative")
+        if card["codes"][0] or cpu["codes"][0] or not (
+                g_t <= SHARDED_SMALL_T_ATOL and g_c <= SHARDED_CHI2_RTOL
+                and g_f <= SHARDED_FINAL_RTOL):
+            raise AssertionError(f"{name}: the 1,024-pose solve parts from the CPU's "
+                                 f"{card['codes']}")
+    return {"nccl_ms": nccl[0][0]["ms"][1:], "gloo_ms": gloo[0][0]["ms"][1:],
+            "all_reduces": nccl[0][0]["all_reduce"]}
+
+
+def rank_fleet_session(rank: int, world: int, frames: int) -> dict:
+    """Phase 43's fleet in each rank: run_multi --fleet's loop at
+    four_robot_cityscale.yaml's widths on the synthetic sequence of phase
+    27, ``frames`` frames, once with the DB sharded and the drain on the
+    mesh and once with the whole DB and the same mesh drain. One drain, at
+    the end (the throttled drains of ``spin`` are cut), with the
+    configuration's prior; then the same drain again from the state
+    before it with the tight prior ``TIGHT_PRIOR_SQRT_INFO`` on the
+    robots' first poses. Returns each run's counts, loops, loop queue,
+    graph and trajectories before the drain, each drain's chi2 history,
+    breakdowns and trajectories after it, launches and wall seconds."""
+    import argparse
+    import dataclasses
+
+    import torch
+
+    from scl_slam_tpu_torch import run_multi
+    from scl_slam_tpu_torch.config import load_config
+    from scl_slam_tpu_torch.ops import kernels
+    from scl_slam_tpu_torch.parallel import multihost
+    from scl_slam_tpu_torch.runtime import FleetMapper
+
+    mesh = multihost.make_mesh(("shard",))
+    cfg = load_config(os.path.join(ROOT, "configs", "four_robot_cityscale.yaml"))
+    cfg = dataclasses.replace(cfg, number_of_robots=4, robot_id=0, robot_name="a")
+    args = argparse.Namespace(dataset="synthetic", frames=frames, root=None)
+    get_scan, get_pose, n = run_multi.build_dataset(args)
+    splits = run_multi.make_splits(n, 4, 10)
+    scans = {k: get_scan(k) for k in range(n)}
+    out = {}
+    for which, shard in (("sharded", True), ("whole", False)):
+        fleet = FleetMapper(cfg, device="cuda")
+        if shard:
+            fleet.shard_database(mesh)
+        fleet.attach_mesh(mesh)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        intra = inter = 0
+        for step in range(max(len(s) for s in splits)):
+            for r in range(4):
+                if step < len(splits[r]):
+                    k = splits[r][step]
+                    fleet.add_robot_frame(r, run_multi.pose_of(get_pose(k)), scans[k],
+                                          stamp=0.1 * k)
+            for ev in fleet.step():
+                intra += "loop" in ev
+                inter += "inter_loop" in ev
+        q = fleet.state.loop_queue
+        c = int(q.count)
+        queue = (q.i[:c].cpu().numpy(), q.j[:c].cpu().numpy(), q.z_t[:c].cpu().numpy())
+        before = [fleet.trajectory(robot=r) for r in range(4)]
+        # the drain writes its factors into the graph in place
+        snap = fleet.state._replace(graph=type(fleet.state.graph)(*[
+            x.clone() if torch.is_tensor(x) else se3_clone(x) for x in fleet.state.graph]))
+        drains = {}
+        for prior in ("config", "tight"):
+            if prior == "tight":
+                g = snap.graph
+                fleet.state = snap._replace(graph=g._replace(
+                    prior_sqrt_info=torch.full_like(g.prior_sqrt_info, TIGHT_PRIOR_SQRT_INFO)))
+            torch.cuda.synchronize()
+            t_solve = time.perf_counter()
+            chi2 = fleet.optimize()
+            torch.cuda.synchronize()
+            drains[prior] = {
+                "solve_s": time.perf_counter() - t_solve, "chi2": chi2,
+                "traj": [fleet.trajectory(robot=r) for r in range(4)],
+                "broken": fleet.broken_drains, "breakdowns": list(fleet.solve_breakdowns),
+            }
+            if prior == "config":
+                wall = time.perf_counter() - t
+                launches = dict(kernels.LAUNCHES)
+        out[which] = {
+            "wall_s": wall, "intra": intra, "inter": inter,
+            "counts": [int(x) for x in fleet.state.counts], "queue": queue,
+            "edges": int(fleet.state.graph.num_edges), "before": before, "drains": drains,
+            "launches": launches, "local_rows": int(fleet.state.desc_db.index.shape[0]),
+        }
+    return out
+
+
+def se3_clone(p):
+    """A copy of an ``se3.Pose``'s tensors."""
+    return type(p)(*[x.clone() for x in p])
+
+
+# The sharded fleet against the whole-DB one on the card: the loop
+# factors' z (ICP and RANSAC over the card's sums) and the trajectories
+# before the drain; after the drain, with the configuration's prior
+# (translation sigma 1e4 m, yaw pi: the gauge nearly free, so f32 solves
+# of one graph part along it), within FLEET_DRAIN_ATOL and the final chi2
+# within FLEET_DRAIN_CHI2_RTOL, and with a tight prior on each robot's
+# first pose (the gauge fixed) within FLEET_TIGHT_ATOL. Measured from the
+# state before the drain, f32: on the CPU in 9 edge orders, the
+# configuration's prior 0.28-0.33 final chi2 (f64: 0.050-0.052), the
+# trajectories up to 2.45e-2 m apart; on an H100 80GB HBM3 (PERF.md)
+# in 8 orders over NCCL 0.277-0.322 and up to 3.46e-2 m apart, the
+# sharded fleet against the whole-DB one 2.71e-2 m and 2.9e-2 relative;
+# the tight prior 1e-5 m apart on the CPU, 1.14e-5 m on the card.
+FLEET_Z_ATOL = 1e-2
+FLEET_TRAJ_ATOL = 1e-3
+FLEET_DRAIN_ATOL = 7e-2
+FLEET_DRAIN_CHI2_RTOL = 0.4
+FLEET_TIGHT_ATOL = 2e-4
+TIGHT_PRIOR_SQRT_INFO = 1e3
+
+
+def phase_distributed(torch) -> dict:
+    """Phase 43, from phase 42's spawns: ``parallel/dryrun``'s parts A-D
+    (the sharded DB and the mesh drain, peer ingest and replay, eviction, a
+    2-robot fleet step, each held against a whole-DB run in the rank) in
+    two ranks over gloo and in one over NCCL (``dryrun_multichip``'s runs,
+    its ranks held by ``dryrun.hold_ranks``); then the ``FleetMapper`` at
+    four_robot_cityscale.yaml's widths (16,384 DB rows, 8,192 a rank) with
+    ``shard_database`` and ``attach_mesh`` over the two gloo ranks on phase
+    27's scene for ``FLEET_SHARDED_FRAMES`` frames, against the whole-DB
+    fleet with the same mesh drain: the same counts, loops and loop queue
+    (its z_t within ``FLEET_Z_ATOL``), the same edges, the trajectories
+    before the drain within ``FLEET_TRAJ_ATOL``; each fleet's drain, with
+    the configuration's prior and again with a tight one, must not break
+    down and must bring the chi2 below 5% of its start, and the two
+    fleets' trajectories after it must agree within ``FLEET_DRAIN_ATOL``
+    (the final chi2 within ``FLEET_DRAIN_CHI2_RTOL``) and
+    ``FLEET_TIGHT_ATOL``; the two ranks' bit-equal; K1, K2 and K6
+    launches and wall seconds."""
+    from scl_slam_tpu_torch.parallel import dryrun
+
+    for name, outs in (("2 x gloo", DISTRIBUTED["gloo"]), ("1 x nccl", DISTRIBUTED["nccl"])):
+        runs = [o["dryrun"] for o in outs]
+        dryrun.hold_ranks(runs)
+        o = runs[0]
+        if min(o["launches"]["max_image"], o["launches"]["nn_select"],
+               o["launches"]["nn_select_batched"], o["launches"]["ransac_counts_batched"]) < 1:
+            raise AssertionError(f"dry run {name}: a kernel was not launched: {o['launches']}")
+        log(f"[43] dry run {name} ({outs[0]['dryrun_s']:.1f} s in the rank): A {o['A']['loops']} "
+            f"loops, chi2 {o['A']['chi2'][0]:.4g} -> {o['A']['chi2'][-1]:.4g}; B {o['B']}; "
+            f"C {o['C']}; D {o['D']}; rank 0 launches {o['launches']}")
+
+    def gap(a, b):
+        """The largest translation gap between two fleets' trajectories."""
+        return max(float(np.abs(x[:, :3, 3] - y[:, :3, 3]).max()) for x, y in zip(a, b) if len(x))
+
+    outs = [o["fleet"] for o in DISTRIBUTED["gloo"]]
+    for o in outs:
+        sh, wh = o["sharded"], o["whole"]
+        for key in ("counts", "edges", "intra", "inter"):
+            if sh[key] != wh[key]:
+                raise AssertionError(f"the sharded fleet's {key} {sh[key]} vs {wh[key]}")
+        for a, b in zip(sh["queue"][:2], wh["queue"][:2]):
+            if not np.array_equal(a, b):
+                raise AssertionError("the sharded fleet's loop queue differs")
+        z_gap = float(np.abs(sh["queue"][2] - wh["queue"][2]).max()) if len(sh["queue"][2]) else 0.0
+        before = gap(sh["before"], wh["before"])
+        if not (z_gap <= FLEET_Z_ATOL and before <= FLEET_TRAJ_ATOL) or sh["local_rows"] != 8192:
+            raise AssertionError(f"the sharded fleet parts from the whole-DB one: z {z_gap} m, "
+                                 f"trajectories before the drain {before} m, local rows "
+                                 f"{sh['local_rows']}")
+        for prior, atol in (("config", FLEET_DRAIN_ATOL), ("tight", FLEET_TIGHT_ATOL)):
+            ds, dw = sh["drains"][prior], wh["drains"][prior]
+            for name, d in (("sharded", ds), ("whole", dw)):
+                finite = all(np.isfinite(x).all() for x in d["traj"]) and np.isfinite(d["chi2"]).all()
+                if d["broken"] or d["breakdowns"] or not finite:
+                    raise AssertionError(f"the {name} fleet's drain ({prior} prior) broke down: "
+                                         f"{d['breakdowns']}, chi2 {d['chi2'].tolist()}")
+                if not d["chi2"][-1] < 0.05 * d["chi2"][0]:
+                    raise AssertionError(f"the {name} fleet's drain ({prior} prior): chi2 "
+                                         f"{d['chi2'][0]} -> {d['chi2'][-1]}")
+            apart = gap(ds["traj"], dw["traj"])
+            rel = abs(float(ds["chi2"][-1]) / float(dw["chi2"][-1]) - 1)
+            if not (apart <= atol and (prior == "tight" or rel <= FLEET_DRAIN_CHI2_RTOL)):
+                raise AssertionError(f"after the drain ({prior} prior) the sharded fleet parts "
+                                     f"from the whole-DB one by {apart} m, final chi2 {rel} relative")
+            ds["gap"], ds["rel"] = apart, rel
+        for key in ("max_image", "nn_select_batched", "ransac_counts_batched"):
+            if sh["launches"][key] < 1:
+                raise AssertionError(f"the sharded fleet launched no {key}")
+    for prior in ("config", "tight"):
+        rank_raw = gap(outs[0]["sharded"]["drains"][prior]["traj"],
+                       outs[1]["sharded"]["drains"][prior]["traj"])
+        if rank_raw != 0.0:
+            raise AssertionError(f"the ranks' sharded fleets part by {rank_raw} m ({prior} prior)")
+    sh, wh = outs[0]["sharded"], outs[0]["whole"]
+    log(f"[43] sharded fleet, 2 ranks x 8,192 DB rows, {FLEET_SHARDED_FRAMES} frames: "
+        f"{sh['intra']} intra + {sh['inter']} inter loops, counts {sh['counts'][:4]}, queue "
+        f"{len(sh['queue'][0])} (z_t {z_gap:.3g} m from the whole-DB run's), {sh['edges']} "
+        f"edges; wall {sh['wall_s']:.1f} s sharded, {wh['wall_s']:.1f} s whole (the drive and "
+        f"one drain); launches K1 {sh['launches']['nn_select_batched']} K2 "
+        f"{sh['launches']['max_image']} K6 {sh['launches']['ransac_counts_batched']}; "
+        f"sharded against whole before the drain {before:.3g} m; the ranks bit-equal")
+    for prior in ("config", "tight"):
+        ds, dw = sh["drains"][prior], wh["drains"][prior]
+        log(f"[43] the drain, {prior} prior: chi2 {ds['chi2'][0]:.6g} -> {ds['chi2'][-1]:.6g} "
+            f"sharded ({ds['solve_s']:.2f} s), {dw['chi2'][0]:.6g} -> {dw['chi2'][-1]:.6g} "
+            f"whole ({dw['solve_s']:.2f} s); no breakdown; sharded against whole {ds['gap']:.3g} "
+            f"m, final chi2 {ds['rel']:.3g} relative")
+    return {"launches": sh["launches"], "wall_s": sh["wall_s"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "scl_slam_tpu_torch")):
         raise RuntimeError(
@@ -4069,6 +4663,9 @@ def main() -> int:
     del front["scans"]
     run(39, phase_runner_front_ends, torch, kernels)
     run(40, phase_serve_odometry, torch)
+    run(41, phase_native_loader, torch)
+    run(42, phase_sharded_solve, torch)
+    run(43, phase_distributed, torch)
 
     def entry(name, source, replaces, n, res, library_ms=None):
         e = {"name": name, "route": "cuda", "source": f"scl_slam_tpu_torch/csrc/{source}",

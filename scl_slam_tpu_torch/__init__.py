@@ -31,9 +31,14 @@ scl_slam_tpu_torch.serve``, with ``io/export.py``), and so is the front end:
 point-to-plane scan-to-map odometry with deskew (``runtime/odometry.py``,
 ``ops/deskew.py``; its 1-NN on K4), IMU preintegration (``runtime/imu.py``)
 and the 15-state IMU window smoother (``graph/imu_factor.py``), behind
-``run --odometry icp|imu`` and ``serve --odometry icp``. ``Mapper`` runs on
-the GPU unless it is given ``device="cpu"``. What is still to come is listed in
-``ROADMAP.md``.
+``run --odometry icp|imu`` and ``serve --odometry icp``. The I/O modules
+(the Euler and quaternion conversions, the C++ prefetching loader behind
+``run --loader native``, the run figures) and the distributed path on
+``torch.distributed`` (``parallel/``: the edge-sharded solve behind
+``Mapper.attach_mesh``, the row-sharded descriptor DB behind
+``Mapper.shard_database``, the multi-rank dry run) complete the port;
+``ROADMAP.md`` lists what is not carried. ``Mapper`` runs on the GPU
+unless it is given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -286,9 +286,10 @@ def vector_query(
     the ``num_candidates`` nearest keys (masked), the nearest accepted below
     ``threshold``. No yaw estimate (0)."""
     mask = base.candidate_mask(db, query_robot, query_index, mode, exclude_recent)
-    d2, pos = base.topk_by_key(db.keys, desc, mask, num_candidates)
+    d2, pos = base.topk_by_key(db.keys, desc, mask, num_candidates, base.shard_of(db))
+    cand = base.candidate_rows(db, pos, mask)
     dist = torch.sqrt(torch.clamp(d2, min=0.0))
-    dist = torch.where(torch.gather(mask, 1, pos), dist, float("inf"))
+    dist = torch.where(cand.ok, dist, float("inf"))
     best = torch.argmin(dist, dim=1)
     best_dist = torch.gather(dist, 1, best[:, None])[:, 0]
     best_pos = torch.gather(pos, 1, best[:, None])[:, 0]
@@ -297,8 +298,8 @@ def vector_query(
     return base.Match(
         found=found,
         db_pos=torch.where(found, best_pos, none).to(torch.int32),
-        robot=torch.where(found, db.robot[best_pos].long(), none).to(torch.int32),
-        index=torch.where(found, db.index[best_pos].long(), none).to(torch.int32),
+        robot=torch.where(found, base.pick(cand.robot, best), none).to(torch.int32),
+        index=torch.where(found, base.pick(cand.index, best), none).to(torch.int32),
         distance=best_dist,
         yaw=torch.zeros_like(best_dist),
     )

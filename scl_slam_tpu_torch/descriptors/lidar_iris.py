@@ -440,13 +440,13 @@ def query(
     best below ``distance_threshold``. iris: [B, R, C] images, [B, R] row
     keys; query_index [B]; query_robot one robot or [B]."""
     mask = base.candidate_mask(db, query_robot, query_index, mode, cfg.exclude_recent)
-    _, pos = base.topk_by_key(db.keys, iris.row_key, mask, cfg.num_candidates)
-    cand_imgs = db.descriptors[pos]                             # [B, K, R, C]
+    _, pos = base.topk_by_key(db.keys, iris.row_key, mask, cfg.num_candidates, base.shard_of(db))
+    cand = base.candidate_rows(db, pos, mask)
+    cand_imgs = cand.descriptors                                # [B, K, R, C]
     a = tuple(x[:, None] for x in pack_features(*encode_features(iris.image, cfg)))
     b = pack_features(*encode_features(cand_imgs, cfg))
     dist, yaw = _match_features(a, iris.image[:, None], b, cand_imgs, cfg)   # [B, K]
-    cand_ok = torch.gather(mask, 1, pos)
-    dist = torch.where(cand_ok, dist, float("inf"))
+    dist = torch.where(cand.ok, dist, float("inf"))
     best = torch.argmin(dist, dim=1)
     best_dist = torch.gather(dist, 1, best[:, None])[:, 0]
     best_pos = torch.gather(pos, 1, best[:, None])[:, 0]
@@ -455,8 +455,8 @@ def query(
     return base.Match(
         found=found,
         db_pos=torch.where(found, best_pos, none).to(torch.int32),
-        robot=torch.where(found, db.robot[best_pos].long(), none).to(torch.int32),
-        index=torch.where(found, db.index[best_pos].long(), none).to(torch.int32),
+        robot=torch.where(found, base.pick(cand.robot, best), none).to(torch.int32),
+        index=torch.where(found, base.pick(cand.index, best), none).to(torch.int32),
         distance=best_dist,
         yaw=torch.gather(yaw, 1, best[:, None])[:, 0],
     )

@@ -9,7 +9,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..config import DescriptorType, SlamConfig
-from . import geometric, lidar_iris, m2dp, scan_context, shot
+from . import base, geometric, lidar_iris, m2dp, scan_context, shot
 
 
 @dataclass(frozen=True)
@@ -46,7 +46,7 @@ def _vector_family(name: str, make_fn, dim: int, params) -> Family:
         name=name,
         make=lambda cloud: geometric.Vector(make_fn(cloud).descriptor),
         make_db=lambda capacity, device: geometric.make_db(capacity, dim, device),
-        from_db=lambda db, slots: geometric.Vector(db.descriptors[slots]),
+        from_db=lambda db, slots: geometric.Vector(base.rows(db, slots, ("descriptors",))[0]),
         query=lambda db, d, r, i, mode: geometric.vector_query(
             db, d.descriptor, r, i,
             num_candidates=params.num_candidates,
@@ -90,10 +90,7 @@ def get_family(cfg: SlamConfig) -> Family:
             make_db=lambda capacity, device: scan_context.make_db(
                 capacity, sc_cfg, device
             ),
-            from_db=lambda db, slots: scan_context.ScanContext(
-                db.descriptors[slots], db.keys[slots],
-                db.descriptors[slots].mean(dim=-2),
-            ),
+            from_db=lambda db, slots: scan_context.from_db(db, slots),
             query=lambda db, d, r, i, mode: scan_context.query(
                 db, d, r, i, sc_cfg, mode=mode
             ),
@@ -116,7 +113,8 @@ def get_family(cfg: SlamConfig) -> Family:
             name="lidar_iris",
             make=lambda cloud: lidar_iris.make(cloud, li_cfg),
             make_db=lambda capacity, device: lidar_iris.make_db(capacity, li_cfg, device),
-            from_db=lambda db, slots: lidar_iris.Iris(db.descriptors[slots], db.keys[slots]),
+            from_db=lambda db, slots: lidar_iris.Iris(
+                *base.rows(db, slots, ("descriptors", "keys"))),
             query=lambda db, d, r, i, mode: lidar_iris.query(
                 db, d, r, i, li_cfg, mode=mode
             ),

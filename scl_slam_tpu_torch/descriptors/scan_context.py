@@ -106,6 +106,13 @@ def insert(
     return base.db_insert(db, sc.image, sc.ring_key, robot, index, pos)
 
 
+def from_db(db: base.DescriptorDB, slots) -> ScanContext:
+    """The stored descriptors at ``slots``; the sector key is recomputed
+    from the image."""
+    img, key = base.rows(db, slots, ("descriptors", "keys"))
+    return ScanContext(img, key, img.mean(dim=-2))
+
+
 def from_wire(values: torch.Tensor, cfg: ScanContextConfig) -> ScanContext:
     """Decode a broadcast float vector (the flat image); the ring and
     sector keys are recomputed from it."""
@@ -134,11 +141,11 @@ def query(
     ``distance_threshold``.
     """
     mask = base.candidate_mask(db, query_robot, query_index, mode, cfg.exclude_recent)
-    _, pos = base.topk_by_key(db.keys, sc.ring_key, mask, cfg.num_candidates)
-    cand_imgs = db.descriptors[pos]                          # [B, K, R, S]
-    dist, shift = shifted_cosine_distance(sc.image, cand_imgs)
-    cand_ok = torch.gather(mask, 1, pos)   # masked-out slots (top-k padding)
-    dist = torch.where(cand_ok, dist, float("inf"))
+    _, pos = base.topk_by_key(db.keys, sc.ring_key, mask, cfg.num_candidates, base.shard_of(db))
+    cand = base.candidate_rows(db, pos, mask)
+    dist, shift = shifted_cosine_distance(sc.image, cand.descriptors)   # [B, K]
+    # masked-out slots (top-k padding)
+    dist = torch.where(cand.ok, dist, float("inf"))
     best = torch.argmin(dist, dim=1)
     best_dist = torch.gather(dist, 1, best[:, None])[:, 0]
     best_pos = torch.gather(pos, 1, best[:, None])[:, 0]
@@ -147,8 +154,8 @@ def query(
     return base.Match(
         found=found,
         db_pos=torch.where(found, best_pos, none).to(torch.int32),
-        robot=torch.where(found, db.robot[best_pos].long(), none).to(torch.int32),
-        index=torch.where(found, db.index[best_pos].long(), none).to(torch.int32),
+        robot=torch.where(found, base.pick(cand.robot, best), none).to(torch.int32),
+        index=torch.where(found, base.pick(cand.index, best), none).to(torch.int32),
         distance=best_dist,
         yaw=shift_to_yaw(torch.gather(shift, 1, best[:, None])[:, 0], cfg.num_sectors),
     )

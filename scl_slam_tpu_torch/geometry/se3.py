@@ -99,6 +99,26 @@ def from_matrix(T: torch.Tensor) -> Pose:
     return Pose(T[..., :3, :3], T[..., :3, 3])
 
 
+def from_xyzrpy(xyzrpy: torch.Tensor) -> Pose:
+    """[..., 6] (x, y, z, roll, pitch, yaw) -> Pose (the reference's
+    ``PointPose6D`` storage)."""
+    return Pose(so3.from_euler(xyzrpy[..., 3:]), xyzrpy[..., :3])
+
+
+def to_xyzrpy(p: Pose) -> torch.Tensor:
+    return torch.cat([p.t, so3.to_euler(p.R)], dim=-1)
+
+
+def from_quat_trans(q: torch.Tensor, t: torch.Tensor) -> Pose:
+    """Quaternion [..., 4] (w, x, y, z) and translation [..., 3] -> Pose."""
+    return Pose(so3.quat_to_matrix(q), t)
+
+
+def to_quat_trans(p: Pose):
+    """Pose -> (quaternion [..., 4] (w, x, y, z) with w >= 0, translation)."""
+    return so3.matrix_to_quat(p.R), p.t
+
+
 def stack(poses, dim=0) -> Pose:
     return Pose(
         torch.stack([p.R for p in poses], dim=dim),

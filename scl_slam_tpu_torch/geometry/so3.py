@@ -166,3 +166,60 @@ def from_euler(rpy: torch.Tensor) -> torch.Tensor:
     )
     row2 = torch.stack([-sp, cp * sr, cp * cr], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def to_euler(R: torch.Tensor) -> torch.Tensor:
+    """Matrix -> roll-pitch-yaw (inverse of :func:`from_euler`). At pitch
+    = +-pi/2 the clip keeps arcsin finite, and roll and yaw are the two
+    atan2 readings of the degenerate rows, as in the JAX function."""
+    sp = torch.clamp(-R[..., 2, 0], -1.0, 1.0)
+    pitch = torch.arcsin(sp)
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [..., 4] (w, x, y, z), normalized first -> rotation
+    matrix [..., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = torch.stack(
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1
+    )
+    row1 = torch.stack(
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1
+    )
+    row2 = torch.stack(
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1
+    )
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> unit quaternion [..., 4] (w, x, y, z)
+    with w >= 0: Shepperd's method without branches, all four candidate
+    extractions computed and the one keyed to the largest of (trace, R00,
+    R11, R22) kept (the first on ties, as ``jnp.argmax``)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def s(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS)) * 2.0
+
+    s0 = s(1.0 + tr)
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], dim=-1)
+    s1 = s(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], dim=-1)
+    s2 = s(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], dim=-1)
+    s3 = s(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], dim=-1)
+    cases = torch.stack([q0, q1, q2, q3], dim=-2)              # [..., 4, 4]
+    idx = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.gather(cases, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    # canonical sign: w >= 0
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)

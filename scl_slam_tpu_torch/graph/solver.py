@@ -62,6 +62,48 @@ BREAKDOWN_FLAGS = (
 )
 
 
+class GNStep(NamedTuple):
+    """One Gauss-Newton step's linear solve (:func:`gn_step`): the update
+    ``dx`` and PCG's last residual ``r``, the residuals at the
+    linearization point, and what :func:`note_breakdown` reads."""
+    dx: torch.Tensor          # [N, 6], after the coarse post-correction
+    r: torch.Tensor           # [N, 6]
+    r_e: torch.Tensor         # [E, 6]
+    r_p: torch.Tensor         # [P, 6]
+    H_diag: torch.Tensor
+    b: torch.Tensor
+    bad_D: torch.Tensor
+    D_inv: torch.Tensor
+    bad_start: torch.Tensor   # 0-d bool
+    pcg_trace: tuple          # pcg's (curvatures, r.z, step sizes)
+    x: torch.Tensor           # PCG's solution
+
+
+def note_breakdown(breakdown, step, st: GNStep, dx, chi2):
+    """``breakdown`` (0-d int32) with Gauss-Newton step ``step``'s code
+    where no earlier step broke down and this one did (no host read: a
+    handful of launches against the step's thousands). ``st`` is the
+    step's :class:`GNStep`, ``dx`` the update applied."""
+    curvatures, rz_raw, steps = st.pcg_trace
+    none = st.bad_D.new_zeros(())
+    flags = torch.stack([
+        ~(torch.isfinite(st.H_diag).all() & torch.isfinite(st.b).all()),
+        st.bad_D.any() | ~torch.isfinite(st.D_inv).all(),
+        st.bad_start,
+        ((torch.stack(curvatures) <= 0) & (torch.stack(rz_raw[:-1]) > 0)).any()
+        if curvatures else none,
+        (torch.stack(rz_raw) <= 0).any(),
+        ~torch.isfinite(torch.stack(steps)).all() if steps else none,
+        ~torch.isfinite(st.x).all(),
+        ~torch.isfinite(dx).all(),
+        ~torch.isfinite(chi2),
+    ])
+    bits = 1 << torch.arange(len(BREAKDOWN_FLAGS), dtype=torch.int32, device=flags.device)
+    mask = (flags.to(torch.int32) * bits).sum().to(torch.int32)
+    code = 1 + step * (1 << len(BREAKDOWN_FLAGS)) + mask
+    return torch.where((breakdown == 0) & (mask != 0), code, breakdown)
+
+
 def breakdown_stages(code: int) -> str:
     """A SolveResult.breakdown code in words ("" for 0)."""
     code = int(code)
@@ -234,15 +276,20 @@ def _JtWJ(Ja: torch.Tensor, w: torch.Tensor, Jb: torch.Tensor) -> torch.Tensor:
     return Ja.transpose(-1, -2) @ (w[..., None] * Jb)
 
 
-def _apply_H(x, idx, Ji, Jj, w_e, Jp, w_p, D_damp_only):
+def _apply_H(x, idx, Ji, Jj, w_e, Jp, w_p, D_damp_only, reduce=None):
     """y = (J^T W J + damping) x, matrix-free. x, y: [N, 6]; ``idx`` the
-    (edge i, edge j, prior) index tensors as int64."""
+    (edge i, edge j, prior) index tensors as int64. ``reduce`` sums the
+    J^T W J x of the factors given here over the other shards of the graph
+    (``parallel/sharded.py``: one all-reduce) before the damping is
+    added."""
     gi, gj, gp = idx
     u = (_mv(Ji, x[gi]) + _mv(Jj, x[gj])) * w_e
     y = torch.zeros_like(x)
     y.index_add_(0, gi, _mtv(Ji, u))
     y.index_add_(0, gj, _mtv(Jj, u))
     y.index_add_(0, gp, _mtv(Jp, _mv(Jp, x[gp]) * w_p))
+    if reduce is not None:
+        y = reduce(y)
     # damping term (D_damp_only holds just the added diagonal part)
     return y + _mv(D_damp_only, x)
 
@@ -265,6 +312,29 @@ def _cho_inverse(L: torch.Tensor) -> torch.Tensor:
     return L_inv.transpose(-1, -2) @ L_inv
 
 
+def _merge_by_node(slots):
+    """A factor's coarse blocks [(supernode [F], block [F, 6, 6]), ...]
+    with the blocks that land on one supernode summed into the first of
+    them, the others zero. The Galerkin matrix is the same bilinear form,
+    but where a factor's endpoints share a supernode their blocks (~|J|
+    each) now cancel to the factor's small rigid-motion part before the
+    products, not in the sums of the products (~w |J|^2 each). Those sums'
+    f32 rounding buried the smooth modes of a sparsely used pose array:
+    at four robots of 4-14 poses in 4 x 4,096 slots, one diagonal entry
+    came to -7.9 where f64 gives 0.10, no shift of the ladder factored
+    the matrix, and the PCG step went non-finite in 3 of 4 edge orders."""
+    out = []
+    for a, (na, Ka) in enumerate(slots):
+        first = torch.ones_like(na, dtype=torch.bool)
+        for nb, _ in slots[:a]:
+            first = first & (nb != na)
+        acc = Ka
+        for nb, Kb in slots[a + 1:]:
+            acc = acc + torch.where((nb == na)[:, None, None], Kb, torch.zeros_like(Kb))
+        out.append((na, torch.where(first[:, None, None], acc, torch.zeros_like(acc))))
+    return out
+
+
 def make_dense_coarse(
     cur_poses: se3.Pose,
     Ji, Jj, Jp,             # Jacobian blocks [E, 6, 6] / [P, 6, 6]
@@ -272,14 +342,22 @@ def make_dense_coarse(
     gi, gj, p_idx,          # endpoint indices of the edge/prior arrays
     n_poses: int,
     stride_l: int,
+    reduce=None,
 ):
     """Assemble and factor the dense Galerkin coarsest level; return its
     solve ``coarse_apply(v) -> [N, 6]`` (P A_c^-1 P^T v with one iterative
-    refinement step; the zero map if no factorization is finite).
+    refinement step; exactly the zero map if no factorization is finite,
+    where the JAX function's ``* coarse_ok`` turns 0 x inf into NaN).
+
+    ``reduce`` (the JAX function's ``psum_axis``) sums the dense matrix
+    assembled from the factors given here over the other shards of the
+    graph, once; what follows it is the same on every shard. None (the
+    single-device solve) leaves it as assembled.
 
     The coarse space, the flat-index assembly in chunk copies, the f32
     equilibration and the shift ladder follow the JAX function, whose
-    inline notes give the reasons for each.
+    inline notes give the reasons for each; the blocks are summed by
+    supernode before the products (:func:`_merge_by_node`).
     """
     dtype, dev = Ji.dtype, Ji.device
     gi, gj, p_idx = gi.long(), gj.long(), p_idx.long()
@@ -319,7 +397,8 @@ def make_dense_coarse(
         (cn0[gj], Jj @ P0[gj]),
         (cn1[gj], Jj @ P1[gj]),
     ]
-    slots_p = [(cn0[p_idx], Jp @ P0[p_idx]), (cn1[p_idx], Jp @ P1[p_idx])]
+    slots_e = _merge_by_node(slots_e)
+    slots_p = _merge_by_node([(cn0[p_idx], Jp @ P0[p_idx]), (cn1[p_idx], Jp @ P1[p_idx])])
     a6 = torch.arange(6, device=dev)
 
     def rows(c):
@@ -346,6 +425,8 @@ def make_dense_coarse(
                 0, flat_blk(rows(na), rows(nb)).reshape(-1), _JtWJ(Ka, w_p, Kb).reshape(-1)
             )
     Hc = Hc.reshape(n6, n6)
+    if reduce is not None:
+        Hc = reduce(Hc)
     Hc = 0.5 * (Hc + Hc.T)
     eyen = torch.eye(n6, dtype=dtype, device=dev)
     # invertibility floor for empty supernodes only
@@ -377,10 +458,53 @@ def make_dense_coarse(
         r_eq = sc * vc.reshape(-1)
         y = solve_eq(r_eq)
         y = y + solve_eq(r_eq - Hc_eq @ y)
-        yc = (y * sc).reshape(C, 6) * coarse_ok
+        yc = torch.where(coarse_ok > 0, y * sc, torch.zeros_like(y)).reshape(C, 6)
         return _mv(P0, yc[cn0]) + _mv(P1, yc[cn1])
 
     return coarse_apply
+
+
+def pcg(x, r, Hx, precond, cg_iters: int):
+    """``cg_iters`` steps of preconditioned conjugate gradients from the
+    iterate ``x`` and its residual ``r`` (both [N, 6]). Returns (x, r,
+    the curvatures p.Ap, the r.z of every step, the step sizes alpha and
+    beta), the last three for the breakdown flags.
+
+    r.z is clamped at 0: in f32 the preconditioner (its coarse term is one
+    refinement step on an approximate inverse) can turn indefinite on a
+    residual, and a step with r.z <= 0 then made beta ~1e30 and the update
+    non-finite (about one start in 30 at 4,096 poses on an H100). With r.z
+    = 0, alpha and beta are 0, so r does not move: PCG stops at its last
+    iterate, or restarts from p = z where r.z recomputed from that r comes
+    back above 0. Where r.z > 1e-30 the steps are the JAX function's (beta
+    = r.z' / max(r.z, 1e-30)).
+    """
+    def dot(a, c):
+        return torch.dot(a.reshape(-1), c.reshape(-1))
+
+    z = precond(r)
+    p = z
+    rz_raw = [dot(r, z)]
+    rz = torch.clamp(rz_raw[0], min=0.0)
+    curvatures, steps = [], []
+    for _ in range(cg_iters):
+        Ap = Hx(p)
+        pAp = dot(p, Ap)
+        curvatures.append(pAp)
+        alpha = rz / torch.clamp(pAp, min=1e-30)
+        x = torch.addcmul(x, alpha, p)
+        r = torch.addcmul(r, alpha, Ap, value=-1.0)
+        z = precond(r)
+        rz_raw.append(dot(r, z))
+        rz2 = torch.clamp(rz_raw[-1], min=0.0)
+        # 0 after a stop (r.z = 0): r.z recomputed from the same r can
+        # come back a rounding above 0, and a restart from p = z is then a
+        # steepest-descent step, not a step of ~1e30
+        beta = torch.nan_to_num(rz2 / rz, nan=0.0, posinf=0.0)
+        steps += [alpha, beta]
+        p = torch.addcmul(z, beta, p)
+        rz = rz2
+    return x, r, curvatures, rz_raw, steps
 
 
 def auto_coarse(n_poses: int) -> tuple[int, int]:
@@ -395,6 +519,127 @@ def auto_coarse(n_poses: int) -> tuple[int, int]:
     return stride, levels
 
 
+def gn_step(
+    g: F.FactorGraph,
+    cur: se3.Pose,
+    cg_iters: int,
+    damping: float,
+    huber_delta: float,
+    coarse_stride: int,
+    coarse_levels: int,
+    reduce=None,
+    share=None,
+) -> GNStep:
+    """One damped Gauss-Newton step's linear solve at ``cur``: linearize,
+    assemble the block diagonal and the right-hand side, and solve by
+    block-Jacobi PCG, with a coarse-first start and a closing coarse
+    correction where ``coarse_stride`` > 0 (see the JAX function for the
+    multilevel scheme).
+
+    ``reduce`` sums what the factors given here assembled over the other
+    shards of the graph (``parallel/sharded.sharded_solve``: one
+    all-reduce each for the block diagonal, the right-hand side, every
+    J^T W J x and the dense coarse matrix); ``share`` makes a result
+    computed on every shard the same on all of them (the first's, by a
+    broadcast: the coarse corrections, whose restriction is a scatter-sum
+    that runs in varying order on the card). Where ``reduce`` is given
+    there are no Jacobi mid levels, only the dense level at
+    ``coarse_stride ** coarse_levels``, as in the JAX sharded solve.
+    """
+    n_poses = cur.t.shape[0]
+    dtype, dev = cur.t.dtype, cur.t.device
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    gi, gj, gp = g.i.long(), g.j.long(), g.prior_idx.long()
+    r_e, Ji, Jj, w_e, r_p, Jp, w_p = _linearize(g, cur, huber_delta)
+
+    # block diagonal of J^T W J, and the damping blocks that keep
+    # factor-less pose slots invertible
+    Hi = _JtWJ(Ji, w_e, Ji)
+    Hj = _JtWJ(Jj, w_e, Jj)
+    Hp = _JtWJ(Jp, w_p, Jp)
+    H_diag = _scatter_add(n_poses, gi, Hi)
+    H_diag.index_add_(0, gj, Hj).index_add_(0, gp, Hp)
+    # rhs b = -J^T W r
+    b = _scatter_add(n_poses, gi, -_mtv(Ji, w_e * r_e))
+    b.index_add_(0, gj, -_mtv(Jj, w_e * r_e))
+    b.index_add_(0, gp, -_mtv(Jp, w_p * r_p))
+    if reduce is not None:
+        H_diag, b = reduce(H_diag), reduce(b)
+    mag = torch.clamp(torch.diagonal(H_diag, dim1=-2, dim2=-1).max(dim=-1).values, min=1.0)
+    damp_blocks = (damping * mag + 1e-6)[:, None, None] * eye6
+    D = H_diag + damp_blocks
+
+    # block-Jacobi preconditioner: the exact inverse of each 6x6 block
+    # (from its Cholesky factor)
+    L_D, bad_D = _cholesky(D)
+    D_inv = _cho_inverse(L_D)
+
+    if coarse_stride > 0:
+        jacobi_levels = []  # (cidx, scale, cholesky) per mid level
+        for lvl in range(1, coarse_levels if reduce is None else 1):
+            stride_l = coarse_stride**lvl
+            C = (n_poses + stride_l - 1) // stride_l
+            cidx = torch.arange(n_poses, device=dev) // stride_l
+            ci, cj, cp = cidx[gi], cidx[gj], cidx[gp]
+            Hij = _JtWJ(Ji, w_e, Jj)
+            # Galerkin supernode diagonal; row C is the dump slot for
+            # edges between supernodes
+            Dl = _scatter_add(C + 1, ci, Hi)
+            Dl.index_add_(0, cj, Hj).index_add_(0, cp, Hp)
+            dump = torch.where(ci == cj, ci, C)
+            Dl.index_add_(0, dump, Hij + Hij.transpose(1, 2))
+            Dl = Dl[:C].clone().index_add_(0, cidx, damp_blocks)
+            sl = torch.rsqrt(
+                torch.clamp(torch.diagonal(Dl, dim1=1, dim2=2), min=1e-20)
+            )                                            # [C, 6]
+            Dl_eq = Dl * sl[:, :, None] * sl[:, None, :] + 1e-5 * eye6
+            Ll, badb = _cholesky(Dl_eq)
+            retry, retry_bad = _cholesky(Dl_eq + 1e-2 * eye6)
+            Ll = torch.where(badb[:, None, None], retry, Ll)
+            still = badb & retry_bad
+            Ll = torch.where(still[:, None, None], eye6, Ll)
+            jacobi_levels.append((cidx, sl, _cho_inverse(Ll)))
+        coarse_local = make_dense_coarse(
+            cur, Ji, Jj, Jp, w_e, w_p, g.i, g.j, g.prior_idx,
+            n_poses, coarse_stride**coarse_levels, reduce=reduce,
+        )
+
+        def coarse_apply(v):
+            y = coarse_local(v)
+            return y if share is None else share(y)
+
+        def precond(v):
+            z = _mv(D_inv, v)
+            for cidx_l, sl, Dl_inv in jacobi_levels:
+                vc = _scatter_add(Dl_inv.shape[0], cidx_l, v)
+                z = z + (_mv(Dl_inv, sl * vc) * sl)[cidx_l]
+            return z + coarse_apply(v)
+    else:
+
+        def precond(v):
+            return _mv(D_inv, v)
+
+    def Hx(v):
+        return _apply_H(v, (gi, gj, gp), Ji, Jj, w_e, Jp, w_p, damp_blocks, reduce)
+
+    # PCG, fixed iterations; a coarse-first start where there is a
+    # coarse level (see the JAX function for why)
+    if coarse_stride > 0:
+        x = coarse_apply(b)
+        r = b - Hx(x)
+        bad_start = ~torch.isfinite(x).all()
+    else:
+        x = torch.zeros_like(b)
+        r = b
+        bad_start = bad_D.new_zeros(())
+    x, r, *pcg_trace = pcg(x, r, Hx, precond, cg_iters)
+    dx = x
+    if coarse_stride > 0:
+        # post coarse correction against the undamped operator
+        dx = dx + coarse_apply(b - (Hx(dx) - _mv(damp_blocks, dx)))
+    return GNStep(dx, r, r_e, r_p, H_diag, b, bad_D, D_inv, bad_start, tuple(pcg_trace), x)
+
+
 def solve(
     g: F.FactorGraph,
     poses: se3.Pose,
@@ -405,162 +650,23 @@ def solve(
     coarse_stride: int = 0,
     coarse_levels: int = 1,
 ) -> SolveResult:
-    """Damped Gauss-Newton with PCG inner solves, over the whole
-    fixed-capacity pose array (slots without factors are held in place by
-    damping). ``coarse_stride`` > 0 adds coarse levels to the
-    preconditioner (-1: :func:`auto_coarse`); see the JAX function for the
-    multilevel scheme and the coarse-first start and post-correction.
+    """Damped Gauss-Newton with PCG inner solves (:func:`gn_step`), over
+    the whole fixed-capacity pose array (slots without factors are held in
+    place by damping). ``coarse_stride`` > 0 adds coarse levels to the
+    preconditioner (-1: :func:`auto_coarse`).
     """
-    n_poses = poses.t.shape[0]
     if coarse_stride < 0:
-        coarse_stride, coarse_levels = auto_coarse(n_poses)
-    dtype, dev = poses.t.dtype, poses.t.device
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    gi, gj, gp = g.i.long(), g.j.long(), g.prior_idx.long()
-
+        coarse_stride, coarse_levels = auto_coarse(poses.t.shape[0])
     cur = poses
     chi2s, cg_res, dnorms = [F.chi2(g, poses)], [], []
-    breakdown = torch.zeros((), dtype=torch.int32, device=dev)
-    flag_bits = 1 << torch.arange(len(BREAKDOWN_FLAGS), dtype=torch.int32, device=dev)
+    breakdown = torch.zeros((), dtype=torch.int32, device=poses.t.device)
     for step in range(gn_iters):
-        r_e, Ji, Jj, w_e, r_p, Jp, w_p = _linearize(g, cur, huber_delta)
-
-        # block diagonal of J^T W J, and the damping blocks that keep
-        # factor-less pose slots invertible
-        Hi = _JtWJ(Ji, w_e, Ji)
-        Hj = _JtWJ(Jj, w_e, Jj)
-        Hp = _JtWJ(Jp, w_p, Jp)
-        H_diag = _scatter_add(n_poses, gi, Hi)
-        H_diag.index_add_(0, gj, Hj).index_add_(0, gp, Hp)
-        mag = torch.clamp(torch.diagonal(H_diag, dim1=-2, dim2=-1).max(dim=-1).values, min=1.0)
-        damp_blocks = (damping * mag + 1e-6)[:, None, None] * eye6
-        D = H_diag + damp_blocks
-
-        # rhs b = -J^T W r
-        b = _scatter_add(n_poses, gi, -_mtv(Ji, w_e * r_e))
-        b.index_add_(0, gj, -_mtv(Jj, w_e * r_e))
-        b.index_add_(0, gp, -_mtv(Jp, w_p * r_p))
-
-        # block-Jacobi preconditioner: the exact inverse of each 6x6 block
-        # (from its Cholesky factor)
-        L_D, bad_D = _cholesky(D)
-        D_inv = _cho_inverse(L_D)
-
-        if coarse_stride > 0:
-            Hij = _JtWJ(Ji, w_e, Jj)
-            jacobi_levels = []  # (cidx, scale, cholesky) per mid level
-            for lvl in range(1, coarse_levels + 1):
-                stride_l = coarse_stride**lvl
-                C = (n_poses + stride_l - 1) // stride_l
-                cidx = torch.arange(n_poses, device=dev) // stride_l
-                ci, cj, cp = cidx[gi], cidx[gj], cidx[gp]
-                if lvl < coarse_levels:
-                    # Galerkin supernode diagonal; row C is the dump slot
-                    # for edges between supernodes
-                    Dl = _scatter_add(C + 1, ci, Hi)
-                    Dl.index_add_(0, cj, Hj).index_add_(0, cp, Hp)
-                    dump = torch.where(ci == cj, ci, C)
-                    Dl.index_add_(0, dump, Hij + Hij.transpose(1, 2))
-                    Dl = Dl[:C].clone().index_add_(0, cidx, damp_blocks)
-                    sl = torch.rsqrt(
-                        torch.clamp(torch.diagonal(Dl, dim1=1, dim2=2), min=1e-20)
-                    )                                            # [C, 6]
-                    Dl_eq = Dl * sl[:, :, None] * sl[:, None, :] + 1e-5 * eye6
-                    Ll, badb = _cholesky(Dl_eq)
-                    retry, retry_bad = _cholesky(Dl_eq + 1e-2 * eye6)
-                    Ll = torch.where(badb[:, None, None], retry, Ll)
-                    still = badb & retry_bad
-                    Ll = torch.where(still[:, None, None], eye6, Ll)
-                    jacobi_levels.append((cidx, sl, _cho_inverse(Ll)))
-                else:
-                    coarse_apply = make_dense_coarse(
-                        cur, Ji, Jj, Jp, w_e, w_p, g.i, g.j, g.prior_idx,
-                        n_poses, stride_l,
-                    )
-
-            def precond(v):
-                z = _mv(D_inv, v)
-                for cidx_l, sl, Dl_inv in jacobi_levels:
-                    vc = _scatter_add(Dl_inv.shape[0], cidx_l, v)
-                    z = z + (_mv(Dl_inv, sl * vc) * sl)[cidx_l]
-                return z + coarse_apply(v)
-        else:
-
-            def precond(v):
-                return _mv(D_inv, v)
-
-        def Hx(v):
-            return _apply_H(v, (gi, gj, gp), Ji, Jj, w_e, Jp, w_p, damp_blocks)
-
-        # PCG, fixed iterations; a coarse-first start where there is a
-        # coarse level (see the JAX function for why)
-        if coarse_stride > 0:
-            x = coarse_apply(b)
-            r = b - Hx(x)
-            bad_start = ~torch.isfinite(x).all()
-        else:
-            x = torch.zeros_like(b)
-            r = b
-            bad_start = bad_D.new_zeros(())
-        def dot(a, c):
-            return torch.dot(a.reshape(-1), c.reshape(-1))
-
-        # r.z is clamped at 0: in f32 the preconditioner (its coarse term is
-        # one refinement step on an approximate inverse) can turn indefinite
-        # on a residual, and a step with r.z <= 0 then made beta ~1e30 and
-        # the update non-finite (about one start in 30 at 4,096 poses on an
-        # H100). With r.z = 0, alpha and beta are 0, so r does not move:
-        # PCG stops at its last iterate, or restarts from p = z where r.z
-        # recomputed from that r comes back above 0. Where r.z > 1e-30 the
-        # steps are the JAX function's (beta = r.z' / max(r.z, 1e-30)).
-        z = precond(r)
-        p = z
-        rz_raw = [dot(r, z)]
-        rz = torch.clamp(rz_raw[0], min=0.0)
-        curvatures, steps = [], []
-        for _ in range(cg_iters):
-            Ap = Hx(p)
-            pAp = dot(p, Ap)
-            curvatures.append(pAp)
-            alpha = rz / torch.clamp(pAp, min=1e-30)
-            x = torch.addcmul(x, alpha, p)
-            r = torch.addcmul(r, alpha, Ap, value=-1.0)
-            z = precond(r)
-            rz_raw.append(dot(r, z))
-            rz2 = torch.clamp(rz_raw[-1], min=0.0)
-            # 0 after a stop (r.z = 0): r.z recomputed from the same r can
-            # come back a rounding above 0, and a restart from p = z is
-            # then a steepest-descent step, not a step of ~1e30
-            beta = torch.nan_to_num(rz2 / rz, nan=0.0, posinf=0.0)
-            steps += [alpha, beta]
-            p = torch.addcmul(z, beta, p)
-            rz = rz2
-        dx = x
-        if coarse_stride > 0:
-            # post coarse correction against the undamped operator
-            dx = dx + coarse_apply(b - (Hx(dx) - _mv(damp_blocks, dx)))
-
-        cur = se3.retract(cur, dx)
+        st = gn_step(g, cur, cg_iters, damping, huber_delta, coarse_stride, coarse_levels)
+        cur = se3.retract(cur, st.dx)
         chi2s.append(F.chi2(g, cur))
-        cg_res.append(torch.linalg.norm(r))
-        dnorms.append(torch.linalg.norm(dx))
-        # where this step broke down, if it did (no host read: a handful of
-        # launches against the step's thousands)
-        flags = torch.stack([
-            ~(torch.isfinite(H_diag).all() & torch.isfinite(b).all()),
-            bad_D.any() | ~torch.isfinite(D_inv).all(),
-            bad_start,
-            ((torch.stack(curvatures) <= 0) & (torch.stack(rz_raw[:-1]) > 0)).any()
-            if curvatures else bad_D.new_zeros(()),
-            (torch.stack(rz_raw) <= 0).any(),
-            ~torch.isfinite(torch.stack(steps)).all() if steps else bad_D.new_zeros(()),
-            ~torch.isfinite(x).all(),
-            ~torch.isfinite(dx).all(),
-            ~torch.isfinite(chi2s[-1]),
-        ])
-        mask = (flags.to(torch.int32) * flag_bits).sum().to(torch.int32)
-        code = 1 + step * (1 << len(BREAKDOWN_FLAGS)) + mask
-        breakdown = torch.where((breakdown == 0) & (mask != 0), code, breakdown)
+        cg_res.append(torch.linalg.norm(st.r))
+        dnorms.append(torch.linalg.norm(st.dx))
+        breakdown = note_breakdown(breakdown, step, st, st.dx, chi2s[-1])
     empty = poses.t.new_zeros((0,))
     return SolveResult(
         poses=cur,

@@ -24,9 +24,14 @@ It replays a recorded sequence, so the solve throttle
 run does not depend on the machine's speed (the JAX runner reads the wall
 clock). The last line of its output is a JSON report (``ate_rmse_m``, ``ate_rmse_odom_only_m``,
 ``loops_closed``, ``keyframes``, ``wall_s``, ...; the odometry-only ATE
-with ``--odometry gt`` only, as in the JAX runner). Not ported yet, and
-refused with exit code 2: ``--loader native`` and ``--figure`` (ROADMAP
-queue 1 item 5).
+with ``--odometry gt`` only, as in the JAX runner).
+
+``--loader native`` (KITTI only) reads the scans with the C++ prefetching
+loader (``io/native_loader.py``, built with g++ at first use), in order;
+the run fails where it cannot be built. ``--figure`` (the default) writes
+``trajectory.png`` beside the trajectories (``io/viz.py``); it needs
+matplotlib, and where the figure fails the report says why
+(``figure_error``) and the run goes on.
 """
 from __future__ import annotations
 
@@ -54,11 +59,13 @@ def build_argparser():
     p.add_argument("--odom-drift", type=float, default=0.05,
                    help="synthetic: random-walk odometry noise sigma "
                    "(m/frame translation; rotation sigma is 1/10 of it)")
-    p.add_argument("--figure", dest="figure", action="store_true", default=False,
-                   help="write trajectory.png (not ported yet)")
+    p.add_argument("--figure", dest="figure", action="store_true", default=True,
+                   help="write trajectory.png (paths + loop chords + map) to "
+                   "--output (default on; needs matplotlib)")
     p.add_argument("--no-figure", dest="figure", action="store_false")
     p.add_argument("--loader", choices=["python", "native"], default="python",
-                   help="kitti scan reader (native: not ported yet)")
+                   help="kitti scan reader: python (numpy fromfile) or native "
+                   "(the threaded C++ prefetcher, csrc/dataloader.cpp)")
     p.add_argument("--odometry", choices=["gt", "icp", "imu"], default="gt",
                    help="odometry source: gt = dataset poses (+injected drift "
                    "for synthetic); icp = scan-to-map point-to-plane odometry; "
@@ -80,13 +87,54 @@ def build_argparser():
     return p
 
 
-def _refuse(args) -> str | None:
-    """The reason an option cannot run on the port yet, or None."""
-    if args.loader == "native":
-        return "--loader native is not ported yet (ROADMAP queue 1 item 5: I/O)"
-    if args.figure:
-        return "--figure is not ported yet (ROADMAP queue 1 item 5: io/viz.py)"
-    return None
+def emit_figure(args, mapper, est, dead, gt_poses, report) -> None:
+    """Write the run figure (trajectory, loop chords, map) and put its path
+    in the report, or the reason it failed (``figure_error``): the figure
+    is auxiliary output and never fails the run."""
+    if not args.figure:
+        return
+    try:
+        from .io import viz
+
+        sub = None
+        if "ate_rmse_m" in report and "ate_rmse_odom_only_m" in report:
+            sub = (
+                f"ATE {report['ate_rmse_m']:.3f} m optimized vs "
+                f"{report['ate_rmse_odom_only_m']:.3f} m odometry-only  ·  "
+                f"{report['loops_closed']} loops"
+            )
+        elif "ate_rmse_m" in report:
+            sub = f"ATE {report['ate_rmse_m']:.3f} m  ·  {report['loops_closed']} loops"
+        report["figure"] = viz.save_run_figure(
+            os.path.join(args.output, "trajectory.png"),
+            est,
+            odom=dead,
+            gt=gt_poses,
+            loops=mapper.loop_constraints(),
+            map_points=mapper.global_map(max_points=1 << 16),
+            title=f"scl_slam_tpu_torch — {args.dataset}, {report['frames']} frames",
+            subtitle=sub,
+        )
+    except Exception as e:  # the figure is auxiliary output
+        report["figure_error"] = str(e)
+
+
+def native_scans(paths):
+    """``get_scan(k)`` over the C++ prefetching loader: the scans of
+    ``paths`` streamed in order (the run loop asks for them in order)."""
+    from .io.native_loader import NativeScanLoader
+
+    stream = iter(NativeScanLoader(paths))
+    next_k = [0]
+
+    def get_scan(k):
+        if k != next_k[0]:
+            raise ValueError("the native loader streams the scans in order")
+        xyz, n = next(stream)
+        next_k[0] += 1
+        return xyz[:n]
+
+    return get_scan
 
 
 def demo_config(odom_drift: float):
@@ -251,9 +299,9 @@ def make_front_end(args, gt_of):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    reason = _refuse(args)
-    if reason:
-        print(reason, file=sys.stderr)
+    if args.loader == "native" and args.dataset != "kitti":
+        print("--loader native requires --dataset kitti (the synthetic world "
+              "has no .bin files to prefetch)", file=sys.stderr)
         return 2
     if args.batch and args.odometry != "gt":
         print("--batch requires --odometry gt (precomputed poses)", file=sys.stderr)
@@ -280,7 +328,10 @@ def main(argv=None):
             return 2
         seq = kio.KittiSequence(args.root, args.sequence)
         n = min(len(seq), args.frames)
-        get_scan = seq.scan
+        if args.loader == "native":
+            get_scan = native_scans([os.path.join(seq.velo_dir, f) for f in seq.frames[:n]])
+        else:
+            get_scan = seq.scan
         get_odom = gt_of = seq.gt_pose_velo  # stand-in odometry
         if gt_of(0) is None:
             print("no odometry available (kitti gt missing)", file=sys.stderr)
@@ -320,9 +371,11 @@ def main(argv=None):
         report["batch"] = args.batch
     gt_poses = np.stack([gt_of(k) for k in kf_frames])
     report["ate_rmse_m"] = round(tio.ate_rmse(est, gt_poses), 4)
+    dead = None
     if args.odometry == "gt":
         dead = np.stack([np.asarray(get_odom(k)) for k in kf_frames])
         report["ate_rmse_odom_only_m"] = round(tio.ate_rmse(dead, gt_poses), 4)
+    emit_figure(args, mapper, est, dead, gt_poses, report)
     print(json.dumps(report))
     return 0
 

@@ -35,7 +35,9 @@ again with ``--resume``, at most K times (``respawn i/K`` on stderr):
     python -m scl_slam_tpu_torch.run_multi --robots 2 --transport tcp \
         --respawn 2 --checkpoint-every 5 --crash-robot 0 --crash-after 12
 
-The trajectory figure is left out (ROADMAP queue 1 item 5).
+Robot 0's view of every robot is drawn into ``<output>/trajectory.png``
+(``io/viz.save_fleet_figure``, one joint gauge alignment); where matplotlib
+is missing the report says why (``figure_error``) and the run goes on.
 """
 from __future__ import annotations
 
@@ -137,20 +139,64 @@ def feed(mapper, k: int, get_scan, get_pose) -> dict | None:
     return mapper.spin_once(now=stamp)
 
 
-def report_view(mapper, get_pose, R: int) -> dict:
+def report_view(mapper, get_pose, R: int, output: str | None = None) -> dict:
     """Joint ATE per robot from one mapper's view of every robot (robot 0's
-    in-process; the worker's own over tcp): ``{"ate_rmse_m": {...}}``."""
+    in-process; the worker's own over tcp), and with ``output`` the joint
+    figure ``<output>/trajectory.png``: ``{"ate_rmse_m": {...}, "figure":
+    path}``, or ``"figure_error"`` where the figure failed (it never fails
+    the run)."""
     from .io import trajectory as tio
 
-    ates = {}
-    if get_pose(0) is not None:  # a KITTI root may lack poses/<seq>.txt
-        for r in range(R):
-            est, stamps = mapper.trajectory_with_stamps(robot=r)
-            if len(est) == 0:
-                continue
-            gt = np.stack([np.asarray(get_pose(int(round(float(s) / 0.1)))) for s in stamps])
-            ates[chr(ord("a") + r)] = round(tio.ate_rmse(est, gt), 4)
-    return {"ate_rmse_m": ates}
+    ates, trajs, gts = {}, {}, {}
+    if get_pose(0) is None:  # a KITTI root may lack poses/<seq>.txt
+        return {"ate_rmse_m": ates}
+    for r in range(R):
+        est, stamps = mapper.trajectory_with_stamps(robot=r)
+        if len(est) == 0:
+            continue
+        gt = np.stack([np.asarray(get_pose(int(round(float(s) / 0.1)))) for s in stamps])
+        label = chr(ord("a") + r)
+        ates[label] = round(tio.ate_rmse(est, gt), 4)
+        trajs[label], gts[label] = est, gt
+    frag = {"ate_rmse_m": ates}
+    if output is None:
+        return frag
+    try:
+        from .io import viz
+
+        # one joint gauge alignment for display (the prior leaves yaw and
+        # translation free): every robot, the loop chords and the map move
+        # by the same transform, so a misalignment between robots shows
+        loops = mapper.loop_constraints()
+        map_pts = mapper.global_map(max_points=1 << 16)
+        if trajs:
+            s, Rw, tw = tio.umeyama_align(
+                np.concatenate([trajs[k][:, :3, 3] for k in sorted(trajs)]),
+                np.concatenate([gts[k][:, :3, 3] for k in sorted(trajs)]),
+            )
+
+            def apply(T):
+                out = T.copy()
+                out[:, :3, 3] = (s * (Rw @ T[:, :3, 3].T)).T + tw
+                out[:, :3, :3] = Rw @ T[:, :3, :3]
+                return out
+
+            trajs = {k: apply(v) for k, v in trajs.items()}
+            for lc in loops:
+                lc["pi"] = s * (Rw @ np.asarray(lc["pi"])) + tw
+                lc["pj"] = s * (Rw @ np.asarray(lc["pj"])) + tw
+            if len(map_pts):
+                map_pts = (s * (Rw @ np.asarray(map_pts).T)).T + tw
+        n_intra = sum(not str(lc.get("kind", "")).startswith("inter") for lc in loops)
+        frag["figure"] = viz.save_fleet_figure(
+            os.path.join(output, "trajectory.png"), trajs, gts=gts, loops=loops,
+            map_points=map_pts, title=f"scl_slam_tpu_torch — {R} robots",
+            subtitle=(f"{n_intra} intra + {len(loops) - n_intra} inter loops  ·  ATE "
+                      + ", ".join(f"{k}: {v}" for k, v in ates.items())),
+        )
+    except Exception as e:  # the figure is auxiliary output
+        frag["figure_error"] = str(e)
+    return frag
 
 
 def _read(path: str) -> str:
@@ -265,6 +311,9 @@ def _run_tcp(args) -> int:
         "solve_breakdowns": [rp["solve_breakdowns"] for rp in reps],
         "inter_log": [rp["inter_log"] for rp in reps],
     }
+    for key in ("figure", "figure_error"):
+        if key in reps[0]:
+            report[key] = reps[0][key]
     print(json.dumps(report))
     return 0
 
@@ -330,7 +379,7 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu",
         "output": args.output,
     }
-    report.update(report_view(mapper0, get_pose, R))
+    report.update(report_view(mapper0, get_pose, R, args.output))
     print(json.dumps(report))
     return 0
 

@@ -163,7 +163,7 @@ def main(argv=None):
     if r == 0:
         os.makedirs(args.output, exist_ok=True)
         mapper.save_trajectories(args.output)
-        out.update(report_view(mapper, get_pose, R))
+        out.update(report_view(mapper, get_pose, R, args.output))
     with open(os.path.join(wd, f"out_{r}"), "w") as f:
         json.dump(out, f)
     bus.close()

@@ -74,7 +74,8 @@ def _snapshot(mapper):
     """(state clone on its device, meta, staged frames): the part of a save
     made under the mapper's locks."""
     with mapper._state_lock, mapper._write_lock:
-        state = _clone(mapper.state)
+        # the whole DB where it is sharded: the file has the unsharded layout
+        state = _clone(mapper.unsharded_state())
         with mapper._pending_loops_lock:  # the serve thread appends here
             pending = list(mapper._pending_server_loops)
             attempts = mapper._verify_attempts
@@ -160,7 +161,7 @@ def load(mapper, path: str):
         if meta["version"] != VERSION:
             raise ValueError(f"unsupported checkpoint version {meta['version']}")
         arrays = {}
-        for i, (name, old) in enumerate(state_leaves(mapper.state).items()):
+        for i, (name, old) in enumerate(state_leaves(mapper.unsharded_state()).items()):
             arr = data[f"leaf_{i}"]
             if arr.shape != tuple(old.shape) or torch.from_numpy(arr).dtype != old.dtype:
                 raise ValueError(
@@ -176,6 +177,7 @@ def load(mapper, path: str):
     state = state_from_numpy(arrays, mapper.device)
     with mapper._state_lock, mapper._write_lock:
         mapper.state = state
+        mapper._reshard()
         mapper._frames_seen = meta["frames_seen"]
         mapper._keyframes = meta["keyframes"]
         lk = meta["last_kf_pose"]

@@ -84,7 +84,7 @@ def _ingest_prepared_fleet_block(
     first = pos == 0  # the robot's first-ever keyframe
 
     pre_end = rl * K + torch.clamp(counts0 - 1, min=0).long()
-    idx_base = torch.where(counts0 > 0, state.desc_db.index[pre_end] + 1, 0)
+    idx_base = torch.where(counts0 > 0, base.rows(state.desc_db, pre_end, ("index",))[0] + 1, 0)
     idxs = (idx_base + rank).to(torch.int32)
 
     # odometry increment from the previous same-robot frame: a batch-mate

@@ -42,10 +42,14 @@ modes (``storage_downsample="voxel_hash"``/``"voxel"``); with ``use_pcm``
 the drain keeps only the largest pairwise-consistent set of the ready
 loops (``graph/pcm.py``).
 
-The state is updated in place (the JAX steps donate their state). What is
-not ported raises ``NotImplementedError``: the mesh solve names the ROADMAP
-item it waits for; the C++ host-descriptor path and int16 transfer are
-not carried.
+With a mesh attached (``Mapper.attach_mesh``) the drain's solve is the
+distributed two-stage path (chordal rotation init, then the edge-sharded
+Gauss-Newton of ``parallel/sharded.py``); ``Mapper.shard_database`` shards
+the descriptor DB by rows over the same mesh.
+
+The state is updated in place (the JAX steps donate their state). The
+C++ host-descriptor path and int16 transfer are not carried, and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -82,19 +86,26 @@ def _resolve_indices(state: MapperState, enc: torch.Tensor):
     Returns (slot [Q] int32, -1 where absent; pending [Q] bool: absent but
     not ingested yet, i.e. the index is ahead of the robot's chain, so the
     entry stays queued rather than being dropped as evicted)."""
-    db = state.desc_db
+    db_robot = base.column(state.desc_db, "robot")
+    db_index = base.column(state.desc_db, "index")
     robot = (enc // IDX_BASE).long()
     index = enc % IDX_BASE
-    hits = (db.robot[None, :] == robot[:, None]) & (db.index[None, :] == index[:, None])
+    hits = (db_robot[None, :] == robot[:, None]) & (db_index[None, :] == index[:, None])
     found = hits.any(dim=1)
     first = hits.to(torch.int8).argmax(dim=1)   # first hit, as jnp.argmax
     slot = torch.where(found, first, -1).to(torch.int32)
     K = state.kf_xyz.shape[0] // state.counts.shape[0]
     count = state.counts[robot]
     last_slot = torch.clamp(robot * K + count - 1, min=0)
-    last_index = torch.where(count > 0, db.index[last_slot], -1)
+    last_index = torch.where(count > 0, db_index[last_slot], -1)
     pending = ~found & (index > last_index)
     return slot, pending
+
+
+def _db_index(state: MapperState, slots):
+    """The protocol keyframe index at DB rows ``slots`` (from their owner
+    on a sharded DB)."""
+    return base.rows(state.desc_db, slots, ("index",))[0]
 
 
 def _prepare_frame(xyz: torch.Tensor, mask: torch.Tensor, cfg: SlamConfig):
@@ -166,7 +177,7 @@ def _ingest_prepared_block(
     prev_slot = max(slot0 - 1, robot * K)
     first = pos0 == 0
     # protocol keyframe indices continue from the last resident frame's
-    idx0 = 0 if first else state.desc_db.index[prev_slot] + 1
+    idx0 = 0 if first else _db_index(state, prev_slot) + 1
     idxs = (idx0 + ar).to(torch.int32)
 
     # odometry increments: frame 0 chains off the last stored odometry pose
@@ -379,7 +390,7 @@ def _retrieve_intra(state: MapperState, robot: int, cfg: SlamConfig):
     pos = int(state.counts[robot]) - 1
     slot = robot * K + max(pos, 0)
     slots = torch.tensor([slot], device=state.kf_xyz.device)
-    q_idx = state.desc_db.index[slots]            # protocol index [1]
+    q_idx = _db_index(state, slots)               # protocol index [1]
     match = fam.query(state.desc_db, fam.from_db(state.desc_db, slots), robot, q_idx, "intra")
     already = state.loop_target[slot] >= 0
     attempt = match.found[0] & ~already & (pos >= 0)
@@ -566,6 +577,55 @@ def _drain_queue_and_optimize(state: MapperState, cfg: SlamConfig):
     return state, chi2_history, broken
 
 
+def _drain_queue_and_optimize_mesh(state: MapperState, cfg: SlamConfig, group):
+    """The mesh-attached drain (``Mapper.attach_mesh``): the distributed
+    two-stage solve of the JAX function.
+
+    1. The queue drains into the factor graph (``_drain_queue``, PCM where
+       ``use_pcm``), as on one device.
+    2. The rotation stage: chordal rotation averaging
+       (``chordal_rotation_init``), the global linear relaxation that
+       converges whatever the accumulated rotation error.
+    3. The pose stage: edge-sharded Gauss-Newton over ``group``
+       (``parallel/sharded.sharded_solve``) for ``max_outer_rounds``
+       steps, with ``gamma`` over-relaxation and the two change thresholds'
+       freeze.
+
+    Every rank runs the same drain on the same state; only the edge work is
+    split. Solves only when the drain added a loop factor. A solve that
+    ends non-finite never replaces the estimate (the JAX function keeps
+    it). Returns (state, chi2_history [max_outer_rounds], zeros when
+    nothing was solved; broken [1] int32: 0, or where the solve ended
+    non-finite its ``breakdown`` code, -1 where no step flagged it).
+    """
+    from ..parallel import sharded
+
+    graph, n_new, new_queue = _drain_queue(state, cfg)
+    poses = se3.Pose(state.opt_R, state.opt_t)
+    o = cfg.optimizer
+    broken = torch.zeros((1,), dtype=torch.int32, device=poses.t.device)
+    if int(n_new) > 0:
+        new, chi2_history, code = sharded.sharded_solve(
+            group, graph, chordal_rotation_init(graph, poses),
+            gn_iters=o.max_outer_rounds, cg_iters=o.cg_iters, damping=o.damping,
+            gamma=o.gamma, rotation_change_threshold=o.rotation_change_threshold,
+            pose_change_threshold=o.pose_change_threshold,
+            coarse_stride=o.coarse_stride, coarse_levels=o.coarse_levels,
+        )
+        ok = _solved(new, chi2_history)
+        opt_R = torch.where(ok, new.R, poses.R)
+        opt_t = torch.where(ok, new.t, poses.t)
+        broken = torch.where(ok, broken, torch.where(code != 0, code, -1))
+    else:
+        opt_R, opt_t = poses.R, poses.t
+        chi2_history = poses.t.new_zeros((o.max_outer_rounds,))
+    state = state._replace(
+        graph=graph, opt_R=opt_R, opt_t=opt_t, loop_queue=new_queue,
+        loop_closed=torch.zeros_like(state.loop_closed),
+    )
+    return state, chi2_history, broken
+
+
 def _batch_body(
     state: MapperState,
     robot: int,
@@ -711,7 +771,7 @@ def _detect_inter(state: MapperState, robot: int, cfg: SlamConfig):
     pos = int(state.counts[robot]) - 1
     slot = robot * K + max(pos, 0)
     slots = torch.tensor([slot], device=state.kf_xyz.device)
-    q_idx = state.desc_db.index[slots]
+    q_idx = _db_index(state, slots)
     match = fam.query(state.desc_db, fam.from_db(state.desc_db, slots), robot, q_idx, "inter")
     match = base.Match(*(f[0] for f in match))
     found = match.found & ~(state.loop_target[slot] >= 0)
@@ -805,7 +865,7 @@ def _gather_global_map(state: MapperState, per: int):
     (empty slots masked by the DB's occupancy). Returns ([S, per, 3],
     [S, per])."""
     xyz = state.kf_xyz[:, : per * 3].reshape(-1, per, 3)
-    occupied = state.desc_db.index >= 0
+    occupied = base.column(state.desc_db, "index") >= 0
     mask = state.kf_mask[:, :per] & occupied[:, None]
     return se3.transform_points(se3.Pose(state.opt_R, state.opt_t), xyz), mask
 
@@ -893,6 +953,8 @@ class Mapper:
         # fixed-lag archive: evicted keyframes' (index, stamp, pose at
         # eviction) per robot, merged back in by full_trajectory
         self._evicted: dict[int, list] = {}
+        self._mesh_group = None   # set by attach_mesh()
+        self._db_group = None     # set by shard_database()
 
     # -- keyframe gate (reference saveFrame, distributedMapping.h:755-780) --
     def should_add_keyframe(self, pose) -> bool:
@@ -1001,8 +1063,10 @@ class Mapper:
         from . import eviction
 
         with self._write_lock:
-            self.state, records = eviction.compact_robot(self.state, self.cfg, robot)
+            # a sharded DB is gathered, compacted whole, and sharded again
+            self.state, records = eviction.compact_robot(self.unsharded_state(), self.cfg, robot)
             self._evicted.setdefault(robot, []).extend(records)
+            self._reshard()
 
     def _ensure_capacity(self, k: int, robot: int | None = None) -> None:
         """Evict (compact) until ``k`` more keyframes fit the robot's block
@@ -1169,21 +1233,78 @@ class Mapper:
         chi2 history (zeros when no loop factor was added)."""
         self._drain_server_loops()
         with self._write_lock:
-            self.state, chi2_hist, broken = _drain_queue_and_optimize(self.state, self.cfg)
+            if self._mesh_group is not None:
+                self.state, chi2_hist, broken = _drain_queue_and_optimize_mesh(
+                    self.state, self.cfg, self._mesh_group)
+                starts = ("mesh",)
+            else:
+                self.state, chi2_hist, broken = _drain_queue_and_optimize(self.state, self.cfg)
+                starts = ("warm", "chordal")
         broken = to_numpy(broken)
         if broken.any():
             self.broken_drains += 1
             self.solve_breakdowns += [
                 f"{start}: " + (solver.breakdown_stages(c) if c > 0 else "no step flagged")
-                for start, c in zip(("warm", "chordal"), broken.tolist()) if c != 0
+                for start, c in zip(starts, broken.tolist()) if c != 0
             ]
         return to_numpy(chi2_hist)
 
+    # -- the distributed path (parallel/) --
     def attach_mesh(self, mesh, axis: str = "shard") -> None:
-        raise NotImplementedError(
-            "the mesh-attached distributed solve is not ported yet "
-            "(ROADMAP queue 1 item 4: distributed)"
-        )
+        """Route every drain's solve through the distributed two-stage path
+        (chordal rotation init, then the edge-sharded Gauss-Newton over the
+        mesh axis's group): :func:`_drain_queue_and_optimize_mesh`. Every
+        rank of the group must run the same mapper on the same frames.
+        ``mesh`` is a ``torch.distributed`` ``DeviceMesh``
+        (``parallel/multihost.make_mesh``). Composes with
+        :meth:`shard_database` on the same mesh."""
+        group = mesh.get_group(axis)
+        world = torch.distributed.get_world_size(group)
+        if self.cfg.optimizer.edge_capacity % world:
+            raise ValueError(
+                f"edge_capacity {self.cfg.optimizer.edge_capacity} not "
+                f"divisible by mesh axis {axis}={world}"
+            )
+        self._mesh_group = group
+
+    def detach_mesh(self) -> None:
+        """Back to the single-device drain."""
+        self._mesh_group = None
+
+    @_locked
+    def shard_database(self, mesh, axis: str = "shard") -> None:
+        """Shard the descriptor DB by rows over the mesh axis's group: rank
+        r keeps only rows ``[r S / D, (r + 1) S / D)`` of its four arrays
+        (``descriptors/base.ShardedDB``). Queries take the top-k over the
+        local rows and merge the ranks' candidates
+        (``parallel/sharded.sharded_topk``); inserts write on the owning
+        rank; compaction gathers the DB, compacts it and shards it again;
+        checkpoints and every other reader see the whole DB
+        (:meth:`unsharded_state`). The answers are the unsharded ones.
+        Every rank must run the same mapper on the same frames; the DB's
+        row count (``number_of_robots * max_keyframes``) must divide by
+        the axis size. Calls from a bus thread are not supported."""
+        group = mesh.get_group(axis)
+        world = torch.distributed.get_world_size(group)
+        S = self.state.kf_xyz.shape[0]
+        if S % world:
+            raise ValueError(f"DB rows {S} not divisible by mesh axis {axis}={world}")
+        with self._write_lock:
+            self.state = self.state._replace(desc_db=base.unshard_db(self.state.desc_db))
+            self._db_group = group
+            self._reshard()
+
+    def _reshard(self) -> None:
+        """Shard a whole DB again where :meth:`shard_database` asked for it
+        (after a compaction or a checkpoint load)."""
+        if self._db_group is not None and base.shard_of(self.state.desc_db) is None:
+            self.state = self.state._replace(
+                desc_db=base.shard_db(self.state.desc_db, self._db_group))
+
+    def unsharded_state(self) -> MapperState:
+        """The state with the whole descriptor DB (gathered where it is
+        sharded; the state itself otherwise)."""
+        return self.state._replace(desc_db=base.unshard_db(self.state.desc_db))
 
     # -- inter-robot loop closure --
     def next_index(self, robot: int) -> int:
@@ -1192,7 +1313,7 @@ class Mapper:
         n = int(self.state.counts[robot])
         if n == 0:
             return 0
-        return int(self.state.desc_db.index[robot * K + n - 1]) + 1
+        return int(_db_index(self.state, robot * K + n - 1)) + 1
 
     def _pose_in(self, T) -> se3.Pose:
         """A [4, 4] wire pose as an f32 Pose on this mapper's device."""
@@ -1265,7 +1386,7 @@ class Mapper:
         cur = self._pose_out(st.odom_R[slot], st.odom_t[slot])
         pre = self._pose_out(st.odom_R[slot - 1], st.odom_t[slot - 1]) if pos > 0 else cur.copy()
         msg = DescriptorMsg(
-            robot=self.robot, index=int(st.desc_db.index[slot]), pre_pose=pre,
+            robot=self.robot, index=int(_db_index(st, slot)), pre_pose=pre,
             cur_pose=cur, values=np.asarray(wire, np.float32),
             stamp=float(st.stamps[slot]),
         )
@@ -1299,7 +1420,7 @@ class Mapper:
         robot_pre, index_pre = int(match.robot), int(match.index)
         K = self.cfg.keyframe.max_keyframes
         cur_slot = self.robot * K + int(self.state.counts[self.robot]) - 1
-        idx_cur = int(self.state.desc_db.index[cur_slot])
+        idx_cur = int(_db_index(self.state, cur_slot))
         req = VerifyRequest(
             robot_cur=self.robot, index_cur=idx_cur, robot_pre=robot_pre,
             index_pre=index_pre, cloud_xyz=to_numpy(cloud_xyz),
@@ -1432,7 +1553,7 @@ class Mapper:
         with self._write_lock:
             st = self.state
             n = int(st.counts[robot])
-            idx = to_numpy(st.desc_db.index[robot * K : robot * K + n])
+            idx = to_numpy(_db_index(st, torch.arange(robot * K, robot * K + n)))
             poses = self._traj_from(st, robot)
             stamps = to_numpy(st.stamps[robot * K : robot * K + n])
             archived = list(self._evicted.get(robot, []))

@@ -703,3 +703,114 @@ def test_timers_on_the_card(cuda_device, tmp_path):
 
     assert (tmp_path / "trace.json").exists()
     assert any(e.device_type == DeviceType.CUDA for e in prof.key_averages())
+
+
+@pytest.mark.cuda
+def test_conversions_card_match_cpu(cuda_device):
+    """The Euler and quaternion conversions on the card against the CPU."""
+    from scl_slam_tpu_torch.geometry import se3, so3
+
+    rng = np.random.RandomState(41)
+    rpy = rng.uniform(-np.pi, np.pi, (1024, 3)).astype(np.float32)
+    rpy[:2, 1] = [np.pi / 2, -np.pi / 2]
+    q = rng.normal(size=(1024, 4)).astype(np.float32)
+    t = rng.uniform(-50, 50, (1024, 3)).astype(np.float32)
+    R_np = so3.from_euler(torch.from_numpy(rpy)).numpy()   # one input for both
+    for dev in ("cpu", cuda_device):
+        R = torch.from_numpy(R_np).to(dev)
+        got = [so3.to_euler(R), so3.matrix_to_quat(R), so3.from_euler(torch.from_numpy(rpy).to(dev)),
+               so3.quat_to_matrix(torch.from_numpy(q).to(dev)),
+               se3.to_xyzrpy(se3.Pose(R, torch.from_numpy(t).to(dev)))]
+        got = [g.cpu().numpy() for g in got]
+        if dev == "cpu":
+            ref = got
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, rtol=0, atol=2e-6)
+
+
+@pytest.mark.cuda
+def test_sharded_solve_nccl_world_one_matches_gloo_cpu(cuda_device, tmp_path):
+    """``sharded_solve`` in a world of size 1 over NCCL on the card and over
+    gloo on the CPU (one spawned rank each): the same poses within 1e-3 m
+    and the chi2 history within 1e-3 relative (the card's scatter-sums run
+    in another order; measured on an H100 in 5 runs 1.1e-4 to 4.3e-4 m and
+    2.1e-4 to 3.3e-4 relative, as ``chip_smoke.py`` phase 42's 1,024-pose
+    problem parts by 1.0e-4 to 2.4e-4 m)."""
+    from scl_slam_tpu_torch.parallel import multihost
+
+    outs = {dev: multihost.spawn(_solve_rank, 1, (dev,), device=dev, workdir=str(tmp_path))[0]
+            for dev in ("cpu", "cuda")}
+    np.testing.assert_allclose(outs["cuda"][0], outs["cpu"][0], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(outs["cuda"][1], outs["cpu"][1], rtol=1e-3)
+
+
+def _solve_rank(rank, world, dev):
+    """A 256-pose circle with loops through ``sharded_solve`` on ``dev``."""
+    from scl_slam_tpu_torch.geometry import se3
+    from scl_slam_tpu_torch.graph import factors as F
+    from scl_slam_tpu_torch.parallel import sharded
+
+    n = 256
+    a = 2 * np.pi * np.arange(n) / (n // 2)
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    gt[:, :3, 3] = np.stack([20 * np.cos(a), 20 * np.sin(a), 0 * a], -1)
+    gt[:, 0, 0] = gt[:, 1, 1] = np.cos(a + np.pi / 2)
+    gt[:, 1, 0] = np.sin(a + np.pi / 2)
+    gt[:, 0, 1] = -gt[:, 1, 0]
+    rng = np.random.RandomState(0)
+    g = F.make_graph(2 * n, device=dev)
+    ii, jj, Z = [], [], []
+    X = [gt[0]]
+    for k in range(n - 1):
+        noise = np.eye(4)
+        noise[:3, 3] = rng.normal(0, 0.02, 3)
+        Z.append(np.linalg.inv(gt[k]) @ gt[k + 1] @ noise)
+        ii.append(k), jj.append(k + 1)
+        X.append(X[-1] @ Z[-1])
+    for k in range(0, n // 2, 8):
+        Z.append(np.linalg.inv(gt[k]) @ gt[k + n // 2])
+        ii.append(k), jj.append(k + n // 2)
+    Z = torch.tensor(np.stack(Z), dtype=torch.float32, device=dev)
+    F.add_between_block(g, torch.tensor(ii, device=dev), torch.tensor(jj, device=dev),
+                        se3.Pose(Z[:, :3, :3], Z[:, :3, 3]),
+                        torch.full((len(ii), 6), 50.0, device=dev))
+    T0 = torch.tensor(gt[0], dtype=torch.float32, device=dev)
+    F.add_prior(g, 0, se3.Pose(T0[:3, :3], T0[:3, 3]), [1e3] * 6)
+    X = torch.tensor(np.stack(X), dtype=torch.float32, device=dev)
+    poses, chis, _ = sharded.sharded_solve(None, g, se3.Pose(X[:, :3, :3], X[:, :3, 3]),
+                                           gn_iters=6, cg_iters=48, coarse_stride=16)
+    return poses.t.cpu().numpy(), chis.cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_cityscale_fleet_mesh_drain_on_the_card(cuda_device, tmp_path):
+    """four_robot_cityscale.yaml's fleet at its widths (4 x 4,096 pose
+    slots, 16 frames: 4-14 poses a robot) on the card, its drain on the
+    mesh of one NCCL rank, drained from one state with the graph's edges
+    in 8 orders (the card's scatter-sums vary the order too): no drain
+    breaks down (``broken_drains`` 0), nor the single-device solve of the
+    same graph, and each brings the chi2 below 5% of its start."""
+    import os
+
+    import torch_rank_tasks
+    from scl_slam_tpu_torch.parallel import multihost
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (out,) = multihost.spawn(torch_rank_tasks.sparse_fleet_drain, 1,
+                             (root, 16, 8, "cuda", 4096), device="cuda", workdir=str(tmp_path))
+    for order in out:
+        assert order["broken"] == 0 and order["breakdowns"] == [], order["breakdowns"]
+        assert order["chi"][-1] < 0.05 * order["chi"][0]
+        assert order["single_code"] == 0
+        assert order["single_chi"][-1] < 0.05 * order["single_chi"][0]
+
+
+@pytest.mark.cuda
+def test_dryrun_one_nccl_rank_on_the_card(cuda_device, tmp_path):
+    """``dryrun_multichip(1, "cuda", "nccl")``: parts A-D held against
+    their whole-DB runs in the rank, the kernels of the path launched."""
+    from scl_slam_tpu_torch.parallel import dryrun
+
+    (out,) = dryrun.dryrun_multichip(1, "cuda", "nccl", workdir=str(tmp_path))
+    for k in ("max_image", "nn_select", "nn_select_batched", "ransac_counts_batched"):
+        assert out["launches"][k] >= 1, out["launches"]

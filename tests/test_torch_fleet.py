@@ -461,8 +461,8 @@ optimizer:
 
 def test_run_multi_fleet_on_cpu(tmp_path, capsys):
     """``run_multi --fleet --device cpu`` on a YAML of small widths: the
-    report's keys with mode "fleet", inter-robot loops, both trajectories
-    written."""
+    report's keys (the JAX runner's, its joint figure included) with mode
+    "fleet", inter-robot loops, both trajectories written."""
     path = tmp_path / "small.yaml"
     path.write_text(SMALL)
     argv = ["--robots", "2", "--frames", "40", "--device", "cpu", "--config", str(path),
@@ -472,6 +472,6 @@ def test_run_multi_fleet_on_cpu(tmp_path, capsys):
     assert rep["mode"] == "fleet" and rep["device"] == "cpu" and rep["frames"] == 40
     assert rep["inter_loops"] >= 1, rep
     assert set(rep) == {"robots", "mode", "frames", "intra_loops", "inter_loops", "wall_s",
-                        "frames_per_s", "device", "output", "ate_rmse_m"}
+                        "frames_per_s", "device", "output", "ate_rmse_m", "figure"}
     assert set(rep["ate_rmse_m"]) == {"a", "b"} and max(rep["ate_rmse_m"].values()) < 0.1
     assert run_multi.main(argv + ["--transport", "tcp"]) == 2

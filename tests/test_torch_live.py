@@ -189,8 +189,9 @@ def test_single_frame_ingest_matches_jax(workload):
 
 def test_runner_on_cpu(tmp_path, capsys):
     """``python -m scl_slam_tpu_torch.run --device cpu`` with a handful of
-    frames (a live run, then a batched one), its report and exports; the
-    options that are not ported yet exit 2 with a reason."""
+    frames (a live run, then a batched one), its report, exports and run
+    figure; ``--loader native`` without ``--dataset kitti`` exits 2 with a
+    reason."""
     out = str(tmp_path / "run")
     assert trun.main(["--device", "cpu", "--frames", "12", "--output", out]) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -198,12 +199,16 @@ def test_runner_on_cpu(tmp_path, capsys):
     assert report["loops_closed"] == 0  # inside the demo's exclusion window
     for key in ("ate_rmse_m", "ate_rmse_odom_only_m", "wall_s"):
         assert np.isfinite(report[key])
-    assert sorted(os.listdir(out)) == ["a_kitti.txt", "a_tum.txt"]
-    assert trun.main(["--device", "cpu", "--frames", "10", "--batch", "4", "--output", out]) == 0
-    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["batch"] == 4
-    for bad in (["--loader", "native"], ["--figure"]):
-        assert trun.main(["--device", "cpu", *bad]) == 2
-        assert "not ported yet" in capsys.readouterr().err
+    assert sorted(os.listdir(out)) == ["a_kitti.txt", "a_tum.txt", "trajectory.png"]
+    assert report["figure"] == os.path.join(out, "trajectory.png")
+    out2 = str(tmp_path / "run_batched")
+    assert trun.main(["--device", "cpu", "--frames", "10", "--batch", "4", "--no-figure",
+                      "--output", out2]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["batch"] == 4 and "figure" not in report
+    assert sorted(os.listdir(out2)) == ["a_kitti.txt", "a_tum.txt"]
+    assert trun.main(["--device", "cpu", "--loader", "native"]) == 2
+    assert "requires --dataset kitti" in capsys.readouterr().err
 
 
 def test_mapper_defaults_to_cuda():

@@ -229,8 +229,8 @@ def _small_odometry(monkeypatch):
     monkeypatch.setattr(O, "OdometryConfig", functools.partial(O.OdometryConfig, **SMALL))
 
 
-# the keys of the JAX runner's report with --odometry icp|imu (no
-# odometry-only ATE, no figure), and the port's "device"
+# the keys of the JAX runner's report with --odometry icp|imu --no-figure
+# (no odometry-only ATE), and the port's "device"
 REPORT_KEYS = {"frames", "keyframes", "loops_closed", "wall_s", "frames_per_s", "output",
                "ate_rmse_m", "device"}
 
@@ -243,7 +243,7 @@ def test_runner_front_ends_on_cpu(tmp_path, capsys, monkeypatch, mode, deskew):
     _small_odometry(monkeypatch)
     out = str(tmp_path / "run")
     argv = ["--device", "cpu", "--frames", "8", "--odometry", mode, "--deskew", deskew,
-            "--output", out]
+            "--output", out, "--no-figure"]
     assert trun.main(argv) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(report) == REPORT_KEYS

@@ -66,7 +66,9 @@ def test_run_multi_local_on_cpu(small_args, tmp_path, capsys):
     assert rep["mode"] == "decentralized" and rep["robots"] == 2 and rep["device"] == "cpu"
     assert rep["frames"] == 40 and rep["inter_loops"] >= 1, rep
     assert set(rep["ate_rmse_m"]) == {"a", "b"} and max(rep["ate_rmse_m"].values()) < 0.1
-    assert sorted(os.listdir(tmp_path / "out")) == ["a_kitti.txt", "a_tum.txt", "b_kitti.txt", "b_tum.txt"]
+    assert sorted(os.listdir(tmp_path / "out")) == [
+        "a_kitti.txt", "a_tum.txt", "b_kitti.txt", "b_tum.txt", "trajectory.png"]
+    assert rep["figure"] == str(tmp_path / "out" / "trajectory.png")
 
 
 def test_run_multi_tcp_two_processes_on_cpu(tcp_report):
