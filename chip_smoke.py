@@ -246,7 +246,24 @@ Phases (any failure raises, and the script exits non-zero):
    NCCL, then a ``FleetMapper`` at the city-scale widths with the DB
    sharded and the drain on the mesh over two gloo ranks against the
    whole-DB fleet (counts, queue, loops, trajectories); K1, K2 and K6
-   launches and wall seconds.
+   launches and wall seconds;
+44. the replay's input modes: phase 5's workload under ``transfer="f32"``,
+   ``"int16"`` and ``host_descriptors=True``, 3 runs each in turns (the
+   frames/s of each run, the bytes copied to the card a chunk, K1 and K2
+   launches: none of K2 under ``host_descriptors``, whose one chunk has no
+   remainder), each run's state checks; the host images (the C++
+   ``sc_images_batch``) against K2's from the ``f32`` run on the same
+   frames, at most ``HOST_IMAGE_BINS`` bins > 1e-5 apart in any 4 frames
+   (the CPU test's bound); one ``host_descriptors`` run of the workload in
+   3 chunks of 64 frames, where the next chunk's binning runs on a worker
+   thread beside the card (the binning's ms a chunk, and the share of it
+   the main thread did not wait for); then phase 24's anchor on its kept
+   scans under ``host_descriptors``, under ``int16`` and under ``f32`` on
+   the same scans round-tripped through int16 on the host: each passes the
+   unchanged golden gate, and each mode's loops are within
+   ``ANCHOR_LOOP_SPREAD`` of the ``f32`` run on its scans (phase 24's for
+   host images; 5 mm quantization moves the session's loops: 576-581
+   against 590-594).
 
 Kernel times are CUDA events around replays of a CUDA graph of the call
 (device time without the host's launch cost), beside the eager call's
@@ -774,9 +791,10 @@ class BenchReplay:
         self.stamps = [0.0] * n
         self.gen_s = time.perf_counter() - t0
 
-    def run(self):
-        """One ``Mapper.replay`` of the workload on a fresh Mapper, ended by a
-        synchronize: (mapper, its output, seconds)."""
+    def run(self, chunk_batches=None, **replay_kw):
+        """One ``Mapper.replay`` of the workload on a fresh Mapper (B x R a
+        chunk, or B x ``chunk_batches``; ``replay_kw``: the input mode),
+        ended by a synchronize: (mapper, its output, seconds)."""
         from scl_slam_tpu_torch.runtime import mapper as M
 
         torch = self.torch
@@ -784,7 +802,7 @@ class BenchReplay:
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = m.replay(self.poses, self.scans, self.stamps, apply_gate=False,
-                       batch=self.B, chunk_batches=self.R)
+                       batch=self.B, chunk_batches=chunk_batches or self.R, **replay_kw)
         torch.cuda.synchronize()
         return m, out, time.perf_counter() - t
 
@@ -2377,19 +2395,28 @@ SIM_ATOL = 1e-4
 # the depths of the run_multi sessions that repeat a path phase 11 drives
 # at run_multi's default 120 frames: frames of its synthetic sequence for
 # the three-robot run (phase 11) and the four-robot city-scale run (phase
-# 27), halved to keep the script well inside its time limit (at 120: ~37 s
-# and ~59 s on an H100), widths untouched
+# 27), halved (the city-scale run to a third since phase 44 came) to keep
+# the script well inside its time limit (at 120: ~37 s and ~59 s on an
+# H100; the city-scale run 51.8 s at 60), widths untouched
 MULTI3_FRAMES = 60
-CITYSCALE_FRAMES = 60
+CITYSCALE_FRAMES = 40
 # phase 8's CPU-against-card run: frames of the demo's sequence (9 loops
 # at 40; its CPU side took ~34 s at 60)
 DEMO_CROSS_FRAMES = 40
 # phase 29's checkpoint cadence: a save at the default widths costs ~3 s
 # on the feed's critical path (~72 s of the run's ~110 s at every 5
-# frames, 81 s of the run at every 10); at every 20 the crash after frame
-# 25 resumes from the checkpoint at frame 20
-RESPAWN_CKPT_EVERY = 20
-RESPAWN_CRASH_AFTER = 25
+# frames, 81 s of the run at every 10, 65.0 s at every 20); at every 40
+# the crash after frame 45 resumes from the checkpoint at frame 40
+RESPAWN_CKPT_EVERY = 40
+RESPAWN_CRASH_AFTER = 45
+# phase 44: host Scan Context images against K2's, bins > 1e-5 apart in
+# any 4 frames (tests/test_torch_native_loader.py's bound on its 4 frames:
+# a point within ~2e-7 rad of a sector boundary may land one sector over)
+HOST_IMAGE_BINS = 2
+# how far the anchor's loop counts of two runs of one input part on the
+# card (its solves' atomics): 590-594 under f32 and host images, 576-581
+# under int16 and f32 on the same int16 scans (this script's runs on an H100)
+ANCHOR_LOOP_SPREAD = 6
 
 
 def anchor_world(n_azimuth: int, device):
@@ -2461,7 +2488,13 @@ def phase_anchor(torch, kernels) -> dict:
     from scl_slam_tpu_torch.runtime import mapper as M
 
     acc: dict = {}
-    scan = timing(torch, acc, "render (LidarSim.scan_at)")(lambda k: sim.scan_at(gt[k], seed=k))
+    scans: dict = {}  # kept for phase 44's replays under the input modes
+
+    def render(k):
+        scans[k] = sim.scan_at(gt[k], seed=k)
+        return scans[k]
+
+    scan = timing(torch, acc, "render (LidarSim.scan_at)")(render)
     undos = [patched(kernels, "nn_select_batched", recording("K1")),
              patched(kernels, "max_image", recording("K2")),
              patched(M.Mapper, "_compact", timing(torch, acc, "eviction (Mapper._compact)")),
@@ -2524,6 +2557,7 @@ def phase_anchor(torch, kernels) -> dict:
         f"{r['plain_ms']:.4f} ms, scatter_reduce_ {r['library_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
     res["K2"] = r
+    res.update(scans=scans, gt=gt, odom=odom)
     return res
 
 
@@ -3065,7 +3099,7 @@ def phase_checkpoint(torch, kernels, drive) -> dict:
 def phase_respawn(torch, tcp: dict) -> dict:
     """Phase 29: ``run_multi --robots 2 --transport tcp --respawn 2
     --checkpoint-every RESPAWN_CKPT_EVERY --crash-robot 0 --crash-after
-    RESPAWN_CRASH_AFTER`` (the worker resumes from the frame-20 checkpoint)
+    RESPAWN_CRASH_AFTER`` (the worker resumes from the frame-40 checkpoint)
     on the card at its default 120 frames: exit 0, one respawn on stderr, inter loops, both robots'
     ATE under 1 m (the JAX package's test bound), K2 and K3 launched."""
     import contextlib
@@ -3671,8 +3705,9 @@ SWEEP_FRAMES = 18
 # FRONT_CROSS_FRAMES frames
 FRONT_CROSS_FRAMES = 8
 FRONT_CROSS_ATOL = 1e-3
-# phase 40's drive: frames 1 m apart through phase 37's scene
-SERVE_ODOM_FRAMES = 60
+# phase 40's drive: frames 1 m apart through phase 37's scene (60 before
+# phase 44 came: 17.0 s)
+SERVE_ODOM_FRAMES = 40
 
 
 def phase_k4_odometry(torch, kernels) -> dict:
@@ -3920,14 +3955,16 @@ def phase_imu_odometry(torch, front: dict) -> None:
         raise AssertionError(f"the fused front end at 20 m/s: ATE {ate2}")
 
 
-RUNNER_FRONT_FRAMES = 64
+# 64 before phase 44 came (the two runs 35.7 s)
+RUNNER_FRONT_FRAMES = 48
 
 
 def phase_runner_front_ends(torch, kernels) -> None:
     """Phase 39: ``python -m scl_slam_tpu_torch.run --dataset synthetic
     --odometry icp`` and ``--odometry imu --deskew gyro`` at the demo's
-    widths (32,768-point scans), ``RUNNER_FRONT_FRAMES`` frames (1.5 laps:
-    the depth cut from the default 120 to make room for phases 41-43) on
+    widths (32,768-point scans), ``RUNNER_FRONT_FRAMES`` frames (past the
+    first lap: the depth cut from the default 120 to make room for phases
+    41-44) on
     the card: exit 0, the loops and the ATE printed."""
     import contextlib
     import io
@@ -4597,6 +4634,90 @@ def phase_distributed(torch) -> dict:
     return {"launches": sh["launches"], "wall_s": sh["wall_s"]}
 
 
+def phase_input_modes(torch, kernels, bench: BenchReplay, anchor: dict) -> dict:
+    """Phase 44: the replay's input modes on the card (see the module
+    docstring)."""
+    from scl_slam_tpu_torch import bench_quality as bq
+    from scl_slam_tpu_torch.runtime import mapper as M
+
+    modes = {"f32": {}, "int16": {"transfer": "int16"}, "host": {"host_descriptors": True}}
+    runs = {k: [] for k in modes}
+    launches = {k: {} for k in modes}
+    last = {}
+    for turn in range(3):
+        order = list(modes) if turn % 2 == 0 else list(modes)[::-1]
+        for name in order:
+            kernels.reset_launch_counts()
+            m, out, sec = bench.run(**modes[name])
+            for k, v in kernels.LAUNCHES.items():
+                launches[name][k] = launches[name].get(k, 0) + v
+            bench.check_state(m, out)
+            runs[name].append(bench.n / sec)
+            last[name] = m
+    desc = {k: last[k].state.desc_db.descriptors[: bench.n].cpu().numpy() for k in modes}
+    res = {}
+    for name in modes:
+        chunk = last[name].last_replay["chunks"][0]
+        k1, k2 = launches[name]["nn_select_batched"], launches[name]["max_image"]
+        if k1 < 3 or k2 != (0 if name == "host" else 3 * bench.R):
+            raise AssertionError(f"replay under {name}: K1 {k1}, K2 {k2} in 3 runs")
+        res[name] = {"fps": runs[name], "h2d_bytes": chunk["h2d_bytes"], "k1": k1, "k2": k2,
+                     "bin_ms": chunk["bin_ms"]}
+        log(f"[44] replay {name}: frames/s {', '.join(f'{x:.2f}' for x in runs[name])} (median "
+            f"{float(np.median(runs[name])):.2f}); {chunk['h2d_bytes']:,} bytes to the card a "
+            f"chunk of {bench.n}; K1 {k1}, K2 {k2} in 3 runs; host binning "
+            f"{chunk['bin_ms']:.1f} ms; state checks ok")
+    if res["f32"]["h2d_bytes"] - res["int16"]["h2d_bytes"] != 6 * bench.n * bench.n_pts:
+        raise AssertionError(f"int16 did not halve the scans' 12 bytes a point: {res}")
+    bins = (np.abs(desc["host"] - desc["f32"]) > 1e-5).reshape(bench.n // 4, -1).sum(axis=1)
+    if bins.max() > HOST_IMAGE_BINS:
+        raise AssertionError(f"host images against K2's: {int(bins.max())} bins in 4 frames")
+    log(f"[44] host images (C++ on the host) against K2's (f32 run), {bench.n} frames: "
+        f"{int(bins.sum())} bins > 1e-5 apart, at most {int(bins.max())} in 4 frames "
+        f"(bound {HOST_IMAGE_BINS}); int16 images against f32's: "
+        f"{int((np.abs(desc['int16'] - desc['f32']) > M.Q16_SCALE).sum())} bins more than a "
+        f"5 mm step apart")
+    res["host_bins"] = int(bins.sum())
+
+    # the binning of the next chunk on a worker thread beside the card
+    m, out, sec = bench.run(chunk_batches=max(1, bench.R // 3), host_descriptors=True)
+    bench.check_state(m, out)
+    ch = m.last_replay["chunks"]
+    ahead = ch[1:]
+    hidden = 1.0 - sum(c["wait_ms"] for c in ahead) / sum(c["host_ms"] for c in ahead)
+    log(f"[44] host_descriptors in {len(ch)} chunks of {bench.n // len(ch)}: "
+        f"{bench.n / sec:.2f} frames/s; host half a chunk (ms: host, binning, main thread's "
+        f"wait) " + "; ".join(f"{c['host_ms']:.1f}, {c['bin_ms']:.1f}, {c['wait_ms']:.1f}" for c in ch)
+        + f"; hidden {100 * hidden:.1f}% of chunks 2-{len(ch)}'s host half")
+    res["hidden"] = hidden
+
+    # the anchor on phase 24's scans under each mode, and under f32 on the
+    # scans an int16 chunk sees
+    scans, cfg = anchor["scans"], bq.quality_config(False)
+    q16 = {k: M.quantize_q16(v).astype(np.float32) * M.Q16_SCALE for k, v in scans.items()}
+    with open(bq.GOLDEN) as f:
+        golden = json.load(f)
+    # each mode against the f32 run on its scans
+    ref = {"host": anchor["record"]["loops"]}
+    for name, frames in (("host", scans), ("f32 on int16 scans", q16), ("int16", scans)):
+        rec, _, _ = bq.run_session(cfg, anchor["gt"], anchor["odom"], frames.__getitem__, "cuda",
+                                   32, 6, replay_kw=modes.get(name, {}))
+        if name in modes:
+            held = f"held to {ref[name]} +- {ANCHOR_LOOP_SPREAD}"
+        else:
+            ref["int16"], held = rec["loops"], "int16's reference"
+        rc = bq.gate(rec, golden)
+        log(f"[44] anchor under {name}: ATE {rec['value']:.4f} m (ratio {rec['ratio']:.4f}), "
+            f"{rec['loops']} loops ({held}), {rec['keyframes']} keyframes, {rec['evicted']} "
+            f"evicted, wall {rec['wall_s']:.2f} s")
+        if rc != 0 or rec["keyframes"] != len(anchor["gt"]) or (
+                name in modes and abs(rec["loops"] - ref[name]) > ANCHOR_LOOP_SPREAD):
+            raise AssertionError(f"the anchor under {name} missed its gate or loops: {rec}")
+        res[f"anchor_{name}"] = rec
+    log(f"[44] phase 24's f32 anchor: {ref['host']} loops")
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "scl_slam_tpu_torch")):
         raise RuntimeError(
@@ -4641,10 +4762,9 @@ def main() -> int:
     k7 = run(19, phase_k7, torch, kernels)
     k8 = run(20, phase_k8, torch, kernels)
     switches = run(21, phase_replay_switches, torch, kernels, bench)
-    del bench
     run(22, phase_switch_decisions, torch, kernels)
     run(23, phase_sim, torch)
-    run(24, phase_anchor, torch, kernels)
+    anchor = run(24, phase_anchor, torch, kernels)
     run(25, phase_anchor_cross, torch)
     run(26, phase_modes_cross, torch)
     run(27, phase_cityscale, torch, kernels, CITYSCALE_FRAMES)
@@ -4666,6 +4786,8 @@ def main() -> int:
     run(41, phase_native_loader, torch)
     run(42, phase_sharded_solve, torch)
     run(43, phase_distributed, torch)
+    run(44, phase_input_modes, torch, kernels, bench, anchor)
+    del bench, anchor
 
     def entry(name, source, replaces, n, res, library_ms=None):
         e = {"name": name, "route": "cuda", "source": f"scl_slam_tpu_torch/csrc/{source}",

@@ -104,10 +104,11 @@ def quality_config(quick: bool, max_keyframes: int = 1024):
 
 
 def run_session(cfg, gt, odom, scan, device="cuda", batch=32, chunk_batches=6,
-                n_frames=None, log=None):
+                n_frames=None, log=None, replay_kw=None):
     """Replay frames ``0 .. n_frames`` (all by default) in chunks of ``batch
     * chunk_batches`` with a drain and solve after each; ``scan(k)`` gives
-    frame k's sensor-frame scan [M, 3]. Returns (record, mapper, loops):
+    frame k's sensor-frame scan [M, 3]; ``replay_kw`` goes to every
+    ``Mapper.replay`` (its input mode). Returns (record, mapper, loops):
     the record holds the optimized and dead-reckoning ATE over the
     keyframes (without alignment), their ratio, keyframes, evicted
     keyframes, loops, the device's name and the wall seconds, unrounded;
@@ -129,7 +130,7 @@ def run_session(cfg, gt, odom, scan, device="cuda", batch=32, chunk_batches=6,
         out = m.replay(
             [odom[k] for k in idx], [scan(k) for k in idx],
             stamps=[1.0 * k for k in idx],
-            apply_gate=False, batch=batch, chunk_batches=chunk_batches,
+            apply_gate=False, batch=batch, chunk_batches=chunk_batches, **(replay_kw or {}),
         )
         loops += out["loops"]
         m.optimize()                     # drain every chunk (ends on the host)

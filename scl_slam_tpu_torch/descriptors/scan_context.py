@@ -114,10 +114,10 @@ def from_db(db: base.DescriptorDB, slots) -> ScanContext:
 
 
 def from_wire(values: torch.Tensor, cfg: ScanContextConfig) -> ScanContext:
-    """Decode a broadcast float vector (the flat image); the ring and
-    sector keys are recomputed from it."""
-    img = values.reshape(cfg.num_rings, cfg.num_sectors)
-    return ScanContext(img, img.mean(dim=1), img.mean(dim=0))
+    """Decode broadcast float vectors [..., R * S] (the flat images); the
+    ring and sector keys are recomputed from them."""
+    img = values.reshape(*values.shape[:-1], cfg.num_rings, cfg.num_sectors)
+    return ScanContext(img, img.mean(dim=-1), img.mean(dim=-2))
 
 
 def to_wire(sc: ScanContext) -> torch.Tensor:

@@ -1,17 +1,17 @@
-"""ctypes bindings of the C++ prefetching scan loader (port of
-``scl_slam_tpu/io/native_loader.py``).
+"""ctypes bindings of the C++ scan loader and host Scan Context binning
+(port of ``scl_slam_tpu/io/native_loader.py``).
 
 ``csrc/dataloader.cpp`` reads velodyne ``.bin`` files with a worker pool
 into fixed-capacity padded host buffers and hands them over in order, so
-disk reads overlap the device's work. It is compiled with ``g++`` at first
-use into ``_build/`` (gitignored), under a name that hashes the source and
-the flags, and loaded with ``ctypes``. Where it cannot be built, the loader
-raises: there is no silent fall back to the Python reader
-(``io/kitti.read_velodyne_bin``), which the caller picks instead
-(``run --loader python``).
-
-The JAX module's ``sc_images_batch`` (Scan Context binning on the host)
-is not carried (ROADMAP, "Not carried").
+disk reads overlap the device's work; its ``sc_images_batch`` builds the
+Scan Context images of a batch of padded scans on the host, threaded over
+frames (``Mapper.replay(host_descriptors=True)``). It is compiled with
+``g++`` at first use into ``_build/`` (gitignored), under a name that
+hashes the source and the flags, and loaded with ``ctypes``. Where it
+cannot be built, both raise: there is no silent fall back to the Python
+reader (``io/kitti.read_velodyne_bin``) or to the device's descriptors,
+which the caller picks instead (``run --loader python``, ``replay`` with
+``host_descriptors=False``).
 """
 from __future__ import annotations
 
@@ -29,7 +29,12 @@ import numpy as np
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "dataloader.cpp"
 BUILD_DIR = _PKG / "_build"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
+# -ffp-contract=off: no multiply-add is fused, whatever the host CPU, so the
+# binning's ring and sector of a point on a bin boundary do not depend on
+# the machine that built the library
+CXX_FLAGS = (
+    "-O3", "-ffp-contract=off", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared",
+)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -56,9 +61,12 @@ def build() -> Path:
     # workers, ranks) never load a half-written library
     tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.{threading.get_ident()}"
     t0 = time.perf_counter()
-    r = subprocess.run(
-        [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True
-    )
+    try:
+        r = subprocess.run(
+            [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True
+        )
+    except OSError as e:
+        raise RuntimeError(f"native loader: the compiler {cxx!r} cannot run: {e}") from e
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"native loader: the build failed:\n{r.stdout}{r.stderr}")
@@ -85,8 +93,57 @@ def load_library():
         lib.loader_capacity.restype = ctypes.c_int
         lib.loader_capacity.argtypes = [ctypes.c_void_p]
         lib.loader_destroy.argtypes = [ctypes.c_void_p]
+        lib.sc_images_batch.restype = None
+        lib.sc_images_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_ubyte),
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int,
+        ]
         _lib = lib
         return lib
+
+
+def sc_images_batch(
+    xyz: np.ndarray,
+    mask: np.ndarray | None,
+    num_rings: int,
+    num_sectors: int,
+    max_radius: float,
+    lidar_height: float,
+    n_threads: int = 4,
+) -> np.ndarray:
+    """Scan Context images of a batch of scans, built on the host.
+
+    xyz [B, N, 3] float32; mask [B, N] bool, or None (every point valid).
+    Returns [B, num_rings, num_sectors] float32: the max of z +
+    ``lidar_height`` per polar bin over the points with r < ``max_radius``,
+    0 where a bin is empty, as ``descriptors/scan_context.make`` builds it
+    (every point is binned: ``max_bin_points`` is not applied). A point
+    within ~2e-7 rad of a sector boundary may land one sector over (the
+    polynomial atan2 of ``csrc/dataloader.cpp``). The frames are split over
+    ``n_threads`` threads; the call releases the GIL. Raises where the
+    library cannot be built.
+    """
+    lib = load_library()
+    xyz = np.ascontiguousarray(xyz, np.float32)
+    if xyz.ndim != 3 or xyz.shape[2] != 3:
+        raise ValueError(f"xyz must be [B, N, 3], not {xyz.shape}")
+    B, N = xyz.shape[:2]
+    if mask is None:
+        mask_ptr = ctypes.POINTER(ctypes.c_ubyte)()
+    else:
+        mask = np.ascontiguousarray(mask, np.uint8)
+        if mask.shape != (B, N):
+            raise ValueError(f"mask must be [{B}, {N}], not {mask.shape}")
+        mask_ptr = mask.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte))
+    out = np.empty((B, num_rings, num_sectors), np.float32)
+    lib.sc_images_batch(
+        xyz.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), mask_ptr, B, N,
+        int(num_rings), int(num_sectors), float(max_radius), float(lidar_height),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), int(n_threads),
+    )
+    return out
 
 
 class NativeScanLoader:

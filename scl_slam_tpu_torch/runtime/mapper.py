@@ -20,7 +20,13 @@ Replay, per macro-batch of B keyframes (``_batch_body``): the same steps
 batched over frames, with batched ICP (kernel K1 in every iteration) and an
 exclusive-cumsum queue append. ``Mapper.replay`` runs whole chunks of
 batches through ``_replay_batches`` (a Python loop where JAX scans) and
-hands the remainder to ``Mapper.add_frames``.
+hands the remainder to ``Mapper.add_frames``. Two input modes change what
+crosses to the card: ``transfer="int16"`` sends the scans as 5 mm
+fixed-point counts, dequantized on the card (``_replay_batches_q16``);
+``host_descriptors=True`` builds the Scan Context images on the host (the
+C++ pass of ``io/native_loader.sc_images_batch``, the next chunk's on a
+worker thread while the card runs this one) and sends them beside the
+scans (``_replay_batches_wire``).
 
 Inter-robot, per keyframe of each robot (``Mapper.broadcast_latest``,
 ``Mapper.detect_inter_loop``, ``Mapper.serve_verification``): the new
@@ -47,9 +53,7 @@ distributed two-stage path (chordal rotation init, then the edge-sharded
 Gauss-Newton of ``parallel/sharded.py``); ``Mapper.shard_database`` shards
 the descriptor DB by rows over the same mesh.
 
-The state is updated in place (the JAX steps donate their state). The
-C++ host-descriptor path and int16 transfer are not carried, and raise
-``NotImplementedError``.
+The state is updated in place (the JAX steps donate their state).
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ import functools
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -67,6 +72,7 @@ from ..geometry import se3, so3
 from ..graph import factors as F
 from ..graph import solver
 from ..graph.rotation_init import chordal_rotation_init
+from ..io import native_loader
 from ..ops import pointcloud as pc
 from ..ops import registration as reg
 from .state import LoopQueue, MapperState, to_numpy, make_state
@@ -698,6 +704,19 @@ def _batch_body_prepared(
     return state, oks, match.index, fits
 
 
+def _scan_batches(state: MapperState, poses: se3.Pose, stamps: torch.Tensor, body):
+    """R macro-batches in order (the JAX package scans them in one device
+    program): ``body(state, r, pose [B])`` runs batch r. Returns (state,
+    oks [R*B], match_indices [R*B], fitnesses [R*B])."""
+    oks, idxs, fits = [], [], []
+    for r in range(stamps.shape[0]):
+        state, ok, idx, fit = body(state, r, se3.Pose(poses.R[r], poses.t[r]))
+        oks.append(ok)
+        idxs.append(idx)
+        fits.append(fit)
+    return state, torch.cat(oks), torch.cat(idxs), torch.cat(fits)
+
+
 def _replay_batches(
     state: MapperState,
     robot: int,
@@ -707,19 +726,73 @@ def _replay_batches(
     stamps: torch.Tensor,   # [R, B]
     cfg: SlamConfig,
 ):
-    """R macro-batches in order (the JAX package scans them in one device
-    program). Returns (state, oks [R*B], match_indices [R*B],
-    fitnesses [R*B])."""
-    oks, idxs, fits = [], [], []
-    for r in range(xyz.shape[0]):
-        state, ok, idx, fit = _batch_body(
-            state, robot, se3.Pose(poses.R[r], poses.t[r]), xyz[r], mask[r],
-            stamps[r], cfg,
+    """R macro-batches of :func:`_batch_body`, as :func:`_scan_batches`
+    returns them."""
+    return _scan_batches(
+        state, poses, stamps,
+        lambda st, r, pose: _batch_body(st, robot, pose, xyz[r], mask[r], stamps[r], cfg),
+    )
+
+
+# int16 fixed-point scan transfer (Mapper.replay(transfer="int16")): meters
+# a count. 5 mm resolution, +-163 m range: beyond any spinning LiDAR's
+# returns, and an order of magnitude below the storage downsample's scale.
+Q16_SCALE = 0.005
+
+
+def quantize_q16(xyz: np.ndarray) -> np.ndarray:
+    """Host points (float32) -> int16 counts of ``Q16_SCALE`` m, rounded
+    and clipped to +-32767 (pads included: the card restores them from the
+    mask)."""
+    q = xyz / Q16_SCALE
+    np.round(q, out=q)
+    return np.clip(q, -32767, 32767, out=q).astype(np.int16)
+
+
+def _replay_batches_q16(
+    state: MapperState,
+    robot: int,
+    poses: se3.Pose,        # leaves [R, B, ...]
+    xyz_q: torch.Tensor,    # [R, B, N, 3] int16 counts of Q16_SCALE m
+    mask: torch.Tensor,     # [R, B, N]
+    stamps: torch.Tensor,   # [R, B]
+    cfg: SlamConfig,
+):
+    """:func:`_replay_batches` on int16 fixed-point scans: half the f32
+    bytes cross to the card, where each batch is dequantized (one f32
+    multiply, as the JAX package's, so the points are bit-equal to its)
+    before :func:`_batch_body`."""
+
+    def body(st, r, pose):
+        x = torch.where(
+            mask[r][..., None], xyz_q[r].to(st.opt_t.dtype) * Q16_SCALE, pc.PAD_VALUE
         )
-        oks.append(ok)
-        idxs.append(idx)
-        fits.append(fit)
-    return state, torch.cat(oks), torch.cat(idxs), torch.cat(fits)
+        return _batch_body(st, robot, pose, x, mask[r], stamps[r], cfg)
+
+    return _scan_batches(state, poses, stamps, body)
+
+
+def _replay_batches_wire(
+    state: MapperState,
+    robot: int,
+    poses: se3.Pose,        # leaves [R, B, ...]
+    xyz: torch.Tensor,      # [R, B, N, 3]
+    mask: torch.Tensor,     # [R, B, N]
+    wires: torch.Tensor,    # [R, B, wire_dim] descriptors built on the host
+    stamps: torch.Tensor,   # [R, B]
+    cfg: SlamConfig,
+):
+    """:func:`_replay_batches` with the descriptors built on the host
+    (their wire format, the flat Scan Context image): the card keeps the
+    storage downsample and everything that depends on the DB, and launches
+    no K2."""
+    fam = registry.get_family(cfg)
+
+    def body(st, r, pose):
+        smalls = _prepare_cloud(pc.Cloud(xyz[r], mask[r]), cfg)
+        return _batch_body_prepared(st, robot, pose, smalls, fam.from_wire(wires[r]), stamps[r], cfg)
+
+    return _scan_batches(state, poses, stamps, body)
 
 
 def _ingest_peer(
@@ -955,6 +1028,8 @@ class Mapper:
         self._evicted: dict[int, list] = {}
         self._mesh_group = None   # set by attach_mesh()
         self._db_group = None     # set by shard_database()
+        # the last replay's input mode and per-chunk host costs (replay())
+        self.last_replay: dict | None = None
 
     # -- keyframe gate (reference saveFrame, distributedMapping.h:755-780) --
     def should_add_keyframe(self, pose) -> bool:
@@ -986,9 +1061,10 @@ class Mapper:
                 sel.append(i)
         return accepted, sel
 
-    def _stage(self, poses, scans, stamps, idx):
-        """Padded host staging of the frames ``idx`` (stride-subsampled
-        to capacity, as ``pc.from_points``), moved to the device."""
+    def _pad_scans(self, scans, idx) -> tuple[np.ndarray, np.ndarray]:
+        """Padded host staging of the scans ``idx`` (stride-subsampled to
+        capacity, as ``pc.from_points``): xyz [n, cap, 3] float32, mask
+        [n, cap]."""
         cap = self.cfg.keyframe.raw_points_capacity
         n = len(idx)
         xyz_np = np.full((n, cap, 3), pc.PAD_VALUE, np.float32)
@@ -997,16 +1073,47 @@ class Mapper:
             s = pc.fit_capacity(np.asarray(scans[i], np.float32), cap)
             xyz_np[j, : s.shape[0]] = s
             mask_np[j, : s.shape[0]] = True
+        return xyz_np, mask_np
+
+    def _stage_poses(self, poses, stamps, idx):
+        """The poses and stamps of the frames ``idx``, on the device."""
         R = np.stack([to_numpy(poses[i].R) for i in idx]).astype(np.float32)
         t = np.stack([to_numpy(poses[i].t) for i in idx]).astype(np.float32)
         st = np.asarray([stamps[i] for i in idx], np.float32)
         dev = self.device
         return (
             se3.Pose(torch.from_numpy(R).to(dev), torch.from_numpy(t).to(dev)),
-            torch.from_numpy(xyz_np).to(dev),
-            torch.from_numpy(mask_np).to(dev),
             torch.from_numpy(st).to(dev),
         )
+
+    def _stage(self, poses, scans, stamps, idx):
+        """The frames ``idx`` staged on the host (:meth:`_pad_scans`) and
+        moved to the device: (poses, xyz, mask, stamps)."""
+        xyz_np, mask_np = self._pad_scans(scans, idx)
+        pose_b, st = self._stage_poses(poses, stamps, idx)
+        dev = self.device
+        return pose_b, torch.from_numpy(xyz_np).to(dev), torch.from_numpy(mask_np).to(dev), st
+
+    def _replay_host_chunk(self, scans, idx, transfer: str, host_descriptors: bool) -> dict:
+        """The host half of one replay chunk: the padded scans (as int16
+        counts under ``transfer="int16"``) and masks, and under
+        ``host_descriptors`` the frames' Scan Context images [n, R * S]
+        (the wire vectors), with the ms the host took and the ms of the
+        binning alone."""
+        t0 = time.perf_counter()
+        xyz, mask = self._pad_scans(scans, idx)
+        wires, bin_ms = None, 0.0
+        if transfer == "int16":
+            xyz = quantize_q16(xyz)
+        if host_descriptors:
+            p = self.cfg.scan_context
+            t = time.perf_counter()
+            wires = native_loader.sc_images_batch(
+                xyz, mask, p.num_rings, p.num_sectors, p.max_radius, p.lidar_height
+            ).reshape(len(idx), -1)
+            bin_ms = (time.perf_counter() - t) * 1e3
+        return {"xyz": xyz, "mask": mask, "wires": wires, "bin_ms": bin_ms,
+                "host_ms": (time.perf_counter() - t0) * 1e3}
 
     def _record(self, oks, idxs, fits) -> list:
         oks_h, idxs_h, fits_h = to_numpy(oks), to_numpy(idxs), to_numpy(fits)
@@ -1101,53 +1208,107 @@ class Mapper:
 
         ``poses``: sequence of poses with ``.R`` [3, 3] / ``.t`` [3]
         (tensors or arrays); ``scans``: sequence of [Ni, 3] arrays.
-        ``host_descriptors=True`` and ``transfer="int16"`` are JAX-package
-        workarounds for a TPU host link and are not carried.
+
+        ``transfer``: ``"f32"`` (default) or ``"int16"``: the chunks' scans
+        cross to the card as int16 counts of ``Q16_SCALE`` (5 mm), half the
+        f32 bytes, and are dequantized there (:func:`_replay_batches_q16`);
+        the remainder gets the same quantize-dequantize round trip on the
+        host, so that its frames are the values a chunk would have seen.
+
+        ``host_descriptors``: the chunks' Scan Context images are built on
+        the host by the C++ pass of ``io/native_loader.sc_images_batch``
+        (:func:`_replay_batches_wire`), chunk i+1's on a worker thread
+        while the card runs chunk i; the results do not depend on that
+        overlap. The remainder builds its descriptors on the card. Needs
+        the ``scan_context`` family and the C++ library (built with g++ at
+        first use); raises RuntimeError without either. Every point is
+        binned: ``scan_context.max_bin_points`` applies only on the card,
+        as in the JAX package. Not combinable with ``transfer="int16"``.
+
+        After the call, ``last_replay`` holds each chunk's bytes copied to
+        the device, the host half's ms, its binning's ms and the ms the
+        main thread waited for it.
         """
         if transfer not in ("f32", "int16"):
             raise ValueError(f"unknown transfer mode {transfer!r}")
-        if host_descriptors or transfer == "int16":
-            raise NotImplementedError(
-                "host_descriptors and transfer='int16' are not carried by "
-                "the port (ROADMAP queue 1, 'Not carried')"
-            )
+        if transfer == "int16" and host_descriptors:
+            raise ValueError("transfer='int16' + host_descriptors is not supported")
         n = len(scans)
         if stamps is None:
             stamps = [0.0] * n
         accepted, sel = self._gate_frames(poses, n, apply_gate)
+        self.last_replay = {"transfer": transfer, "host_descriptors": host_descriptors,
+                            "chunks": []}
         if not sel:
             return {"accepted": accepted, "loops": [], "keyframes": self._keyframes}
+        if host_descriptors:
+            if registry.get_family(self.cfg).name != "scan_context":
+                raise RuntimeError(
+                    "host_descriptors=True needs the scan_context descriptor family"
+                )
+            native_loader.load_library()  # raises where it cannot be built
         B, R = batch, chunk_batches
         chunk = B * R
+        chunks = [sel[p : p + chunk] for p in range(0, len(sel) - chunk + 1, chunk)]
+        # chunk i+1's host binning runs here while the card runs chunk i
+        pool = ThreadPoolExecutor(1) if host_descriptors and len(chunks) > 1 else None
         loops: list = []
-        pos = 0
-        while len(sel) - pos >= chunk:
-            idx = sel[pos : pos + chunk]
-            self._ensure_capacity(chunk)
-            self._ensure_queue_headroom(chunk)
-            pose_b, xyz, mask, st = self._stage(poses, scans, stamps, idx)
-            with self._write_lock:
-                self.state, oks, idxs, fits = _replay_batches(
-                    self.state,
-                    self.robot,
-                    se3.Pose(pose_b.R.reshape(R, B, 3, 3), pose_b.t.reshape(R, B, 3)),
-                    xyz.reshape(R, B, *xyz.shape[1:]),
-                    mask.reshape(R, B, -1),
-                    st.reshape(R, B),
-                    self.cfg,
-                )
-            loops.extend(self._record(oks, idxs, fits))
-            self._inter_dirty = True
-            pos += chunk
+        try:
+            ahead = None
+            for c, idx in enumerate(chunks):
+                t = time.perf_counter()
+                host = (ahead.result() if ahead is not None else
+                        self._replay_host_chunk(scans, idx, transfer, host_descriptors))
+                wait_ms = (time.perf_counter() - t) * 1e3
+                ahead = None
+                if pool is not None and c + 1 < len(chunks):
+                    ahead = pool.submit(self._replay_host_chunk, scans, chunks[c + 1],
+                                        transfer, host_descriptors)
+                self._ensure_capacity(chunk)
+                self._ensure_queue_headroom(chunk)
+                dev = self.device
+                pose_b, st = self._stage_poses(poses, stamps, idx)
+                pose_b = se3.Pose(pose_b.R.reshape(R, B, 3, 3), pose_b.t.reshape(R, B, 3))
+                sent = [a for a in (host["xyz"], host["mask"], host["wires"]) if a is not None]
+                xyz, mask, *wires = (torch.from_numpy(a).to(dev).reshape(R, B, *a.shape[1:])
+                                     for a in sent)
+                step = (_replay_batches_wire if host_descriptors else
+                        _replay_batches_q16 if transfer == "int16" else _replay_batches)
+                with self._write_lock:
+                    self.state, oks, idxs, fits = step(
+                        self.state, self.robot, pose_b, xyz, mask, *wires, st.reshape(R, B),
+                        self.cfg,
+                    )
+                loops.extend(self._record(oks, idxs, fits))
+                self._inter_dirty = True
+                self.last_replay["chunks"].append({
+                    # scans, masks, images, poses and stamps
+                    "h2d_bytes": sum(a.nbytes for a in sent) + chunk * 4 * (9 + 3 + 1),
+                    "host_ms": host["host_ms"], "bin_ms": host["bin_ms"], "wait_ms": wait_ms,
+                })
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+        pos = len(chunks) * chunk
         if pos < len(sel):
             rem = sel[pos:]
             # counted above: add_frames counts the remainder again
             self._frames_seen -= len(rem)
+            rem_scans = [scans[i] for i in rem]
+            if transfer == "int16":
+                # the chunks' wire format: a quantize-dequantize round trip
+                # on the host, so that these frames' descriptors and fitness
+                # are what they would be inside a chunk. As in the JAX
+                # package it stays in float32, so a coordinate that rounds
+                # to -0.0 keeps its sign (a chunk's int16 makes it +0.0): a
+                # point at y = -0.0, x < 0 lands in sector 0 here, not 59.
+                rem_scans = [
+                    np.clip(np.round(np.asarray(s, np.float32) / Q16_SCALE), -32767, 32767)
+                    .astype(np.float32) * Q16_SCALE
+                    for s in rem_scans
+                ]
             out = self.add_frames(
-                [poses[i] for i in rem],
-                [scans[i] for i in rem],
-                [stamps[i] for i in rem],
-                apply_gate=False,
+                [poses[i] for i in rem], rem_scans, [stamps[i] for i in rem], apply_gate=False,
             )
             loops.extend(out["loops"])
         return {"accepted": accepted, "loops": loops, "keyframes": self._keyframes}

@@ -6,18 +6,36 @@ schedule (the first file far larger than the rest, two workers, a queue
 of one) that the JAX package's copy of the loader deadlocks on; a read
 error; and ``run --dataset kitti --loader native`` against ``--loader
 python`` on a miniature KITTI tree (the same keyframes and trajectory).
+
+The host Scan Context binning (``sc_images_batch``) against the JAX
+package's C++ (built by its own Makefile into a private directory) and
+against the port's plain ``scan_context.make``, and the replay's host path
+under ``max_bin_points > 0`` in both packages.
 """
+import dataclasses
 import json
 import os
+import shutil
+import subprocess
 import threading
 
 import numpy as np
 import pytest
+import torch
 
+import scl_slam_tpu.config as jconfig
+from scl_slam_tpu.geometry import se3 as jse3
 from scl_slam_tpu.io import kitti as jkio
+from scl_slam_tpu.io import native_loader as jnl
+from scl_slam_tpu.runtime import mapper as jmapper
+from scl_slam_tpu_torch import config as tconfig
 from scl_slam_tpu_torch import run as trun
+from scl_slam_tpu_torch.descriptors import scan_context as sc
+from scl_slam_tpu_torch.geometry import se3
 from scl_slam_tpu_torch.io import kitti as kio
 from scl_slam_tpu_torch.io import native_loader
+from scl_slam_tpu_torch.ops import pointcloud as pc
+from scl_slam_tpu_torch.runtime import mapper as M
 
 
 @pytest.fixture(scope="module")
@@ -53,10 +71,46 @@ def _read_all(loader, timeout=60.0):
     return out
 
 
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's ``io/native_loader`` on its C++ library built by
+    its own Makefile (its flags) from a copy of its source in a private
+    directory, so that no test writes into the JAX package or loads a
+    library that another process is still writing."""
+    d = tmp_path_factory.mktemp("jax_native")
+    for name in ("Makefile", "dataloader.cpp"):
+        shutil.copy(os.path.join(jnl._NATIVE_DIR, name), d)
+    subprocess.run(["make", "-s", "-C", str(d)], check=True, capture_output=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnl, "_SO_PATH", str(d / "libscl_native.so"))
+        mp.setattr(jnl, "_lib", None)
+        assert jnl.load_library() is not None
+        yield jnl
+
+
 def test_builds():
     lib = native_loader.load_library()
     assert lib is native_loader.load_library()
     assert native_loader.build().name.startswith("libscl_loader_")
+
+
+def test_build_failure_raises(monkeypatch, tmp_path):
+    """No compiler, a compiler that fails and one that is not there raise
+    RuntimeError, and so does the binning that needs the library."""
+    false = shutil.which("false")
+    monkeypatch.setattr(native_loader, "_lib", None)
+    monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path)
+    monkeypatch.delenv("CXX", raising=False)
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        native_loader.sc_images_batch(np.zeros((1, 4, 3), np.float32), None, 20, 60, 80.0, 1.65)
+    monkeypatch.setenv("CXX", false)
+    with pytest.raises(RuntimeError, match="build failed"):
+        native_loader.load_library()
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-g++"))
+    with pytest.raises(RuntimeError, match="cannot run"):
+        native_loader.build()
+    assert not list(tmp_path.glob("*.so"))
 
 
 def test_reads_in_order(bin_files):
@@ -189,3 +243,124 @@ def test_run_native_loader_matches_python(mini_kitti, tmp_path, capsys):
         np.testing.assert_array_equal(get_scan(k), seq.scan(k))
     with pytest.raises(ValueError, match="in order"):
         trun.native_scans([os.path.join(seq.velo_dir, seq.frames[0])])(1)
+
+
+def sc_inputs():
+    """tests/test_native_loader.py's inputs: 4 frames of 8,192 points,
+    radii past max_radius, 10% masked."""
+    rng = np.random.RandomState(3)
+    B, N = 4, 8192
+    theta = rng.uniform(-np.pi, np.pi, (B, N))
+    r = rng.uniform(1, 90, (B, N))
+    z = rng.uniform(-2, 6, (B, N))
+    xyz = np.stack([r * np.cos(theta), r * np.sin(theta), z], -1).astype(np.float32)
+    return xyz, rng.rand(B, N) > 0.1
+
+
+def plain_images(xyz, mask, cfg=sc.ScanContextConfig()):
+    cloud = pc.Cloud(torch.from_numpy(xyz), torch.from_numpy(np.asarray(mask)))
+    return sc.make(cloud, cfg).image.numpy()
+
+
+def test_sc_images_match_jax_and_plain(jax_native):
+    """The port's binning bit-equal to the JAX package's C++ (built
+    -march=native, so with fused multiply-adds where the host has them:
+    they move no bin on these inputs), and within 2 bins > 1e-5 of the
+    plain ``scan_context.make`` (its atan2 against the polynomial; 0
+    measured)."""
+    cfg = sc.ScanContextConfig()
+    xyz, mask = sc_inputs()
+    args = (cfg.num_rings, cfg.num_sectors, cfg.max_radius, cfg.lidar_height)
+    got = native_loader.sc_images_batch(xyz, mask, *args, n_threads=2)
+    assert got.shape == (4, 20, 60) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, jax_native.sc_images_batch(xyz, mask, *args, n_threads=2))
+    np.testing.assert_array_equal(got, native_loader.sc_images_batch(xyz, mask, *args, n_threads=1))
+    mismatch = np.abs(got - plain_images(xyz, mask)) > 1e-5
+    assert mismatch.sum() <= 2, f"{mismatch.sum()} bins disagree"
+    np.testing.assert_array_equal(  # mask None: every point valid
+        native_loader.sc_images_batch(xyz, None, *args), plain_images(xyz, np.ones(mask.shape, bool)))
+
+
+def test_sc_images_all_masked_and_out_of_range(jax_native):
+    cfg = sc.ScanContextConfig()
+    args = (cfg.num_rings, cfg.num_sectors, cfg.max_radius, cfg.lidar_height)
+    far = np.full((2, 64, 3), 500.0, np.float32)  # every point past max_radius
+    masked = np.zeros((1, 64, 3), np.float32)
+    for xyz, mask in ((far, np.ones((2, 64), bool)), (masked, np.zeros((1, 64), bool))):
+        got = native_loader.sc_images_batch(xyz, mask, *args)
+        assert got.shape == (len(xyz), 20, 60) and (got == 0).all()
+        np.testing.assert_array_equal(got, jax_native.sc_images_batch(xyz, mask, *args))
+        np.testing.assert_array_equal(got, plain_images(xyz, mask))
+    assert native_loader.sc_images_batch(np.zeros((0, 64, 3), np.float32), None, *args).shape == (0, 20, 60)
+    with pytest.raises(ValueError):
+        native_loader.sc_images_batch(np.zeros((2, 64), np.float32), None, *args)
+
+
+def test_sc_images_ring_boundaries_unfused():
+    """One point a frame within 1e-5 m of a ring boundary: each lands in
+    the plain ``polar_bins`` ring. The library is built with
+    ``-ffp-contract=off``; built -march=native (fusing x * x + y * y into
+    an FMA) it moved 629 of 50,000 such points on an AVX-512 host."""
+    rng = np.random.RandomState(1)
+    n = 4000
+    r = rng.randint(1, 20, n) * 4.0 + rng.uniform(-1e-5, 1e-5, n)
+    theta = rng.uniform(-np.pi, np.pi, n)
+    xyz = np.stack([r * np.cos(theta), r * np.sin(theta), np.ones(n)], -1).astype(np.float32)
+    img = native_loader.sc_images_batch(xyz[:, None], None, 20, 60, 80.0, 1.65).reshape(n, -1)
+    assert (np.count_nonzero(img, axis=1) == 1).all()
+    ring, _, _ = pc.polar_bins(torch.from_numpy(xyz), torch.ones(n, dtype=torch.bool), 20, 60, 80.0)
+    np.testing.assert_array_equal(img.argmax(1) // 60, ring.numpy())
+
+
+def test_host_path_bins_every_point(jax_native, monkeypatch):
+    """With ``max_bin_points > 0`` the card's ``make`` strides the scan
+    before binning; the replay's host path bins every point, in both
+    packages (a difference of both, kept). The JAX replay is stopped at its
+    device program, after its binning call is recorded; the port's runs
+    one chunk, whose DB images are the binning of every point."""
+    n_frames, cap = 4, 2048
+
+    def cfg(mod):
+        return mod.SlamConfig(
+            keyframe=mod.KeyframeConfig(max_keyframes=8, points_per_keyframe=256,
+                                        raw_points_capacity=cap),
+            loop=mod.LoopConfig(submap_capacity=512, queue_capacity=8),
+            optimizer=mod.OptimizerConfig(edge_capacity=16),
+            scan_context=mod.ScanContextParams(max_bin_points=512),
+        )
+
+    rng = np.random.RandomState(0)
+    scans = [rng.uniform(-40, 40, (cap, 3)).astype(np.float32) for _ in range(n_frames)]
+    eye = np.eye(3, dtype=np.float32)
+    ts = [np.float32([2.0 * k, 0, 0]) for k in range(n_frames)]
+    kw = dict(apply_gate=False, batch=2, chunk_batches=2, host_descriptors=True)
+    calls = []
+    binning = jax_native.sc_images_batch
+
+    def recording(xyz, mask, *a, **k):
+        calls.append((xyz.copy(), a, k))
+        return binning(xyz, mask, *a, **k)
+
+    class Stop(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise Stop
+
+    monkeypatch.setattr(jax_native, "sc_images_batch", recording)
+    monkeypatch.setattr(jmapper, "_replay_batches_wire", stop)
+    with pytest.raises(Stop):
+        jmapper.Mapper(cfg(jconfig)).replay(
+            [jse3.Pose(eye, t) for t in ts], scans, [0.0] * n_frames, **kw)
+    (xyz, args, kwargs), = calls
+    np.testing.assert_array_equal(xyz, np.stack(scans))  # every point, no stride
+    assert len(args) == 4 and not kwargs  # rings, sectors, radius, height: no max_bin_points
+
+    m = M.Mapper(cfg(tconfig), "cpu")
+    m.replay([se3.Pose(eye, t) for t in ts], scans, [0.0] * n_frames, **kw)
+    got = m.state.desc_db.descriptors[:n_frames].numpy()
+    ones = np.ones((n_frames, cap), bool)
+    np.testing.assert_array_equal(got, binning(np.stack(scans), ones, *args))
+    strided = plain_images(np.stack(scans), ones, dataclasses.replace(
+        sc.ScanContextConfig(), max_bin_points=512))
+    assert (np.abs(got - strided) > 1e-5).any()  # the card's make would stride

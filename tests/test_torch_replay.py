@@ -11,6 +11,9 @@ expanded-form distance, the port by the exact one — see
 test_torch_registration.py); ICP fitness 2e-2 relative (the same, summed
 over a few hundred correspondences); chained poses 1e-4 m and descriptor
 keys 1e-5 (f32 sums in another order; a sector-boundary atan2 ulp).
+The replay's two input modes (``transfer="int16"``, ``host_descriptors``)
+are held to the same bounds, each package's host binning its own C++
+library (JAX's built by its Makefile into a private directory).
 """
 import dataclasses
 
@@ -25,12 +28,14 @@ from scl_slam_tpu.geometry import se3 as jse3
 from scl_slam_tpu.io import kitti
 from scl_slam_tpu.runtime.mapper import Mapper as JMapper
 from scl_slam_tpu_torch import config as tconfig
+from scl_slam_tpu_torch.descriptors import scan_context as tsc
 from scl_slam_tpu_torch.geometry import se3
 from scl_slam_tpu_torch.io import trajectory as tio
 from scl_slam_tpu_torch.ops import pointcloud as pc
 from scl_slam_tpu_torch.runtime import mapper as M
 from scl_slam_tpu_torch.runtime.state import state_from_numpy, state_to_numpy
 from test_torch_kernels import release_jax_programs  # noqa: F401 (autouse)
+from test_torch_native_loader import jax_native  # noqa: F401 (fixture)
 
 torch.set_num_threads(2)
 
@@ -154,6 +159,43 @@ def test_state_round_trip_and_mid_session_start(workload, jax_run):
     _same_state(state_to_numpy(m.state), jax_run["final"])
 
 
+@pytest.mark.parametrize("mode", ["int16", "host"])
+def test_replay_input_modes_match_jax(workload, jax_native, monkeypatch, mode):
+    """``replay(transfer="int16")`` and ``replay(host_descriptors=True)``
+    against the JAX package's, over three chunks and a remainder of 4: the
+    same loop decisions, matched indices, queue endpoints and state, under
+    ``_same_state``'s bounds (``kf_xyz`` bit-equal: the port dequantizes by
+    the JAX package's f32 multiply). Under ``host_descriptors`` only the
+    remainder builds its images in the port (one call for its 4 frames);
+    under ``int16`` every batch does."""
+    R, t, scans, stamps = workload
+    kw = dict(apply_gate=False, batch=BATCH, chunk_batches=CHUNK,
+              **({"transfer": "int16"} if mode == "int16" else {"host_descriptors": True}))
+    jm = JMapper(_cfg(jconfig))
+    jout = jm.replay([jse3.Pose(jnp.asarray(R[k]), jnp.asarray(t[k])) for k in range(N_FRAMES)],
+                     scans, stamps, **kw)
+    make, made = tsc.scatter_max_image, []
+
+    def counting(*a, **k):
+        made.append(a[0].shape[0])
+        return make(*a, **k)
+
+    monkeypatch.setattr(tsc, "scatter_max_image", counting)
+    m = M.Mapper(_cfg(tconfig), "cpu")
+    out = m.replay(_port_poses(R, t), scans, stamps, **kw)
+    assert sum(1 for x in jout["loops"] if x) >= 5, "the workload closed too few loops"
+    _same_loops(out["loops"], jout["loops"])
+    assert out["keyframes"] == jout["keyframes"] == N_FRAMES
+    _same_state(state_to_numpy(m.state), state_to_numpy(jm.state))
+    np.testing.assert_allclose(m.trajectory(), jm.trajectory(), atol=1e-4)
+    chunks = m.last_replay["chunks"]
+    cap = _cfg(tconfig).keyframe.raw_points_capacity
+    frame_bytes = {"int16": cap * (6 + 1), "host": cap * (12 + 1) + 20 * 60 * 4}[mode]
+    assert [c["h2d_bytes"] for c in chunks] == [BATCH * CHUNK * (frame_bytes + 52)] * 3
+    assert made == ([4] if mode == "host" else [BATCH] * (3 * CHUNK) + [4])
+    assert all(c["bin_ms"] > 0 for c in chunks) == (mode == "host")
+
+
 def test_gate_and_unported_paths_raise():
     cfg = _cfg(tconfig)
     m = M.Mapper(cfg, "cpu")
@@ -162,12 +204,12 @@ def test_gate_and_unported_paths_raise():
     scans = [np.random.RandomState(k).uniform(-20, 20, (600, 3)).astype(np.float32) for k in range(30)]
     out = m.add_frames(poses, scans)  # 1 m gate: every 10th frame
     assert out["accepted"] == [k % 10 == 0 for k in range(30)]
-    with pytest.raises(NotImplementedError):
-        m.replay(poses, scans, transfer="int16")
-    with pytest.raises(NotImplementedError):
-        m.replay(poses, scans, host_descriptors=True)
-    with pytest.raises(ValueError):
+    # the JAX package's argument checks: an unknown mode, and int16 with
+    # host descriptors
+    with pytest.raises(ValueError, match="unknown transfer"):
         m.replay(poses, scans, transfer="f16")
+    with pytest.raises(ValueError, match="not supported"):
+        m.replay(poses, scans, transfer="int16", host_descriptors=True)
     with pytest.raises(ValueError):  # more than a block: eviction cannot help
         m._ensure_capacity(cfg.keyframe.max_keyframes + 1)
     # a batch that could overflow the loop queue drains it (and solves)
@@ -179,6 +221,10 @@ def test_gate_and_unported_paths_raise():
     m2dp = M.Mapper(dataclasses.replace(cfg, descriptor_type=tconfig.DescriptorType.M2DP), "cpu")
     assert m2dp.add_frame(poses[0], scans[0]) is not None
     assert int(m2dp.state.desc_db.count) == 1 and m2dp.state.desc_db.keys.shape[1] == 192
+    # host descriptors are Scan Context images: another family raises
+    with pytest.raises(RuntimeError, match="scan_context"):
+        m2dp.replay(poses, scans, host_descriptors=True)
+    assert int(m2dp.state.desc_db.count) == 1
     # the voxel storage modes are ported: they downsample to the storage width
     vox_cfg = tconfig.SlamConfig(keyframe=tconfig.KeyframeConfig(
         storage_downsample="voxel", points_per_keyframe=256, descript_leaf_size=0.5))
